@@ -1,0 +1,28 @@
+"""Model factory from config (PyTorch port of ``mopa_tpu/models/build.py``)."""
+
+import torch
+
+from mopa_tpu_torch.models.xmuda_arch import Net2DSeg, Net3DSeg
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """``TPU.COMPUTE_DTYPE`` (the reference's key): bfloat16 or float32."""
+    name = cfg.get("TPU", {}).get("COMPUTE_DTYPE", "float32")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def build_model_2d(cfg, generator=None) -> Net2DSeg:
+    return Net2DSeg(num_classes=cfg.MODEL_2D.NUM_CLASSES,
+                    dual_head=cfg.MODEL_2D.DUAL_HEAD,
+                    backbone_2d=cfg.MODEL_2D.TYPE,
+                    compute_dtype=compute_dtype(cfg), generator=generator)
+
+
+def build_model_3d(cfg, generator=None) -> Net3DSeg:
+    kwargs = dict(cfg.MODEL_3D.get(cfg.MODEL_3D.TYPE, {}))
+    kwargs.pop("pretrained", None)
+    return Net3DSeg(num_classes=cfg.MODEL_3D.NUM_CLASSES,
+                    dual_head=cfg.MODEL_3D.DUAL_HEAD,
+                    backbone_3d=cfg.MODEL_3D.TYPE,
+                    compute_dtype=compute_dtype(cfg), generator=generator,
+                    **kwargs)

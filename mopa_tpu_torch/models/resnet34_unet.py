@@ -1,0 +1,193 @@
+"""UNet on a ResNet34 encoder (PyTorch port of
+``mopa_tpu/models/resnet34_unet.py``), eval forward.
+
+Reference backbone ``mopa/models/resnet34_unet.py:83-191``: torchvision-style
+ResNet34 encoder with conv1 stride 1, maxpool + 4 stages, decoder of
+ConvTranspose(k2, s2)+BN+ReLU stages with skip concatenation and 3x3 conv
+fusions, final 3x3 conv to 64 channels; the input is padded to a multiple of
+16 and cropped back. Dropout (p=0.4 after layer3 and layer4) is the identity
+in eval. The public layout is NHWC like the reference; convolutions run
+NCHW through cuDNN. Parameters stay float32 and are cast to the compute dtype
+at each conv, as flax's ``dtype=`` does; batch norm computes in float32.
+Module and parameter names follow the reference's flax names
+(``layer1.block0.conv1``, ``bn1.scale``, ...), so ``models.weights`` maps
+them one to one.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in the input's dtype (weights cast per call)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator | None) -> None:
+    """Seeded init: conv/linear weights normal with variance 1 / fan_in (the
+    reference's lecun-normal scale), biases zero."""
+    for mod in module.modules():
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = mod.weight
+            if isinstance(mod, nn.ConvTranspose2d):
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+            else:
+                fan_in = w[0].numel()
+            with torch.no_grad():
+                w.copy_(torch.randn(w.shape, generator=generator)
+                        * fan_in ** -0.5)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+
+
+class DomainBatchNorm(nn.Module):
+    """Batch norm over NCHW with running statistics (eval only): eps 1e-5,
+    computed in float32, returned in the input dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "training-mode batch norm is not ported yet; call .eval()")
+        inv = torch.rsqrt(self.var + self.eps) * self.scale
+        out = (x.float() - self.mean[:, None, None]) * inv[:, None, None] \
+            + self.bias[:, None, None]
+        return out.to(x.dtype)
+
+
+class BasicBlock(nn.Module):
+    """torchvision BasicBlock: (3x3 conv, BN, ReLU) x2 + skip."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = DomainBatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = DomainBatchNorm(planes)
+        if downsample:
+            self.downsample_conv = Conv2d(inplanes, planes, 1, stride,
+                                          bias=False)
+            self.downsample_bn = DomainBatchNorm(planes)
+        self.downsample = downsample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if self.downsample:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return torch.relu(y + residual)
+
+
+class ResLayer(nn.Module):
+    def __init__(self, inplanes: int, planes: int, blocks: int,
+                 stride: int = 1):
+        super().__init__()
+        self.blocks = blocks
+        for i in range(blocks):
+            s = stride if i == 0 else 1
+            down = i == 0 and (s != 1 or inplanes != planes)
+            self.add_module(f"block{i}", BasicBlock(
+                inplanes if i == 0 else planes, planes, s, down))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.blocks):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+class DecStage(nn.Module):
+    """3x3 conv + BN + ReLU fusion after the skip concat."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, 3, 1, 1)
+        self.bn = DomainBatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn(self.conv(x)))
+
+
+class TConvStage(nn.Module):
+    """ConvTranspose(k2, s2) + BN + ReLU upsampling."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.tconv = ConvTranspose2d(in_channels, out_channels, 2, 2)
+        self.bn = DomainBatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn(self.tconv(x)))
+
+
+class UNetResNet34(nn.Module):
+    """Full-resolution 64-channel feature UNet; (B, H, W, 3) -> (B, H, W, 64)."""
+
+    def __init__(self, compute_dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.conv1 = Conv2d(3, 64, 7, 1, 3, bias=False)  # stride 1 (ref :93)
+        self.bn1 = DomainBatchNorm(64)
+        self.layer1 = ResLayer(64, 64, 3, 1)
+        self.layer2 = ResLayer(64, 128, 4, 2)
+        self.layer3 = ResLayer(128, 256, 6, 2)
+        self.layer4 = ResLayer(256, 512, 3, 2)
+        self.dec_t_conv_stage5 = TConvStage(512, 256)
+        self.dec_conv_stage4 = DecStage(512, 256)
+        self.dec_t_conv_stage4 = TConvStage(256, 128)
+        self.dec_conv_stage3 = DecStage(256, 128)
+        self.dec_t_conv_stage3 = TConvStage(128, 64)
+        self.dec_conv_stage2 = DecStage(128, 64)
+        self.dec_t_conv_stage2 = TConvStage(64, 64)
+        self.dec_conv_stage1 = Conv2d(128, 64, 3, 1, 1)
+        init_weights(self, generator)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        h, w = img.shape[1], img.shape[2]
+        pad_h, pad_w = (-h) % 16, (-w) % 16
+        x = F.pad(img, (0, 0, 0, pad_w, 0, pad_h))
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+        x = torch.relu(self.bn1(self.conv1(x)))
+        inter = [x]
+        x = F.max_pool2d(x, 3, 2, 1)
+        x = self.layer1(x)
+        inter.append(x)
+        x = self.layer2(x)
+        inter.append(x)
+        x = self.layer3(x)
+        inter.append(x)
+        x = self.layer4(x)
+        x = self.dec_t_conv_stage5(x)
+        x = self.dec_conv_stage4(torch.cat([inter[3], x], dim=1))
+        x = self.dec_t_conv_stage4(x)
+        x = self.dec_conv_stage3(torch.cat([inter[2], x], dim=1))
+        x = self.dec_t_conv_stage3(x)
+        x = self.dec_conv_stage2(torch.cat([inter[1], x], dim=1))
+        x = self.dec_t_conv_stage2(x)
+        x = self.dec_conv_stage1(torch.cat([inter[0], x], dim=1))
+        return x[:, :, :h, :w].permute(0, 2, 3, 1)

@@ -1,0 +1,202 @@
+"""Sparse convolution plans and eval-forward compute (PyTorch port of
+``mopa_tpu/ops/sparse_conv.py``).
+
+* ``SubmanifoldConvolution(3, a, b, 3, False)`` -> :func:`submanifold_conv_wide`
+  over a :class:`WidePlan`: on a CUDA tensor the hand-written kernel of
+  ``ops.sparse_conv_cuda``, on a CPU tensor the plain twin
+  :func:`submanifold_conv_wide_ref`.
+* ``Convolution(3, a, b, 2, 2, False)`` -> :func:`strided_conv`.
+* ``Deconvolution(3, a, b, 2, 2, False)`` -> :func:`deconv`.
+* ``BatchNormReLU`` with running statistics -> :func:`batch_norm_act`.
+
+Weight layout: ``(K, Cin, Cout)``; kernel offsets enumerate (dx, dy, dz) with
+dx slowest and dz fastest, as in the reference and in SparseConvNet.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mopa_tpu_torch.ops import voxel as voxel_ops
+
+
+def kernel_offsets(kernel_size: int = 3) -> np.ndarray:
+    """All (dx, dy, dz) offsets, dx slowest / dz fastest; int64 (K, 3)."""
+    r = range(-(kernel_size // 2), kernel_size // 2 + 1)
+    return np.asarray(list(itertools.product(r, r, r)), dtype=np.int64)
+
+
+def build_submanifold_plan(table: voxel_ops.VoxelTable) -> torch.Tensor:
+    """Exact neighbour map of a submanifold 3x3x3 conv: (S, V, 27) local
+    slots, -1 = miss. One ``searchsorted`` per sample row over the sorted
+    table keys (the reference resolves the same matches by sort-merge)."""
+    s, v = table.key.shape
+    dev = table.key.device
+    offs = torch.as_tensor(kernel_offsets(3), device=dev)        # (27, 3)
+    q = table.coords[:, :, None, :] + offs                       # (S, V, 27, 3)
+    q_valid = table.valid_mask()[:, :, None] & (
+        (q >= 0) & (q < voxel_ops.SHIFT)).all(dim=-1)
+    sample = torch.arange(s, device=dev)[:, None, None]
+    qkey = voxel_ops.pack_keys(q, sample, q_valid).reshape(s, v * 27)
+    pos = torch.searchsorted(table.key, qkey).clamp(max=v - 1)
+    hit = (table.key.gather(1, pos) == qkey) & q_valid.reshape(s, v * 27)
+    return torch.where(hit, pos, torch.full_like(pos, -1)).reshape(s, v, 27)
+
+
+class WidePlan(NamedTuple):
+    """Wide-column submanifold plan: one lower-bound rank per (dx, dy) column.
+
+    Keys sort z-fastest, so a column's (up to) three dz neighbours occupy
+    CONSECUTIVE table rows starting at its rank; ``sel`` routes gathered row
+    j to its dz slot.
+
+    Attributes:
+        ranks: (V*9,) int32 window start rows, v-major then column (columns
+            enumerate (dx, dy) with dx slowest; column 4 = centre). The
+            all-miss sentinel is the sample's capacity, which after the
+            per-sample offset is the next sample's first row (or one past
+            the table for the last sample): readers bound-check it.
+        sel: (V*9,) int32 packed dz codes: bits [2j, 2j+2) hold the dz slot
+            (0..2) of gathered row j, 3 = none (63 = an all-miss column).
+    """
+
+    ranks: torch.Tensor
+    sel: torch.Tensor
+
+
+def wide_from_nbr(nbr: torch.Tensor, capacity: int):
+    """(S, V, 27) exact neighbour map -> per-sample (ranks, sel), each
+    (S, V, 9), in local slot space (sentinel rank = ``capacity``)."""
+    n = nbr.reshape(nbr.shape[0], nbr.shape[1], 9, 3)
+    s0, s1, s2 = n[..., 0], n[..., 1], n[..., 2]
+    e0, e1, e2 = s0 >= 0, s1 >= 0, s2 >= 0
+    cap = torch.full_like(s0, capacity)
+    ranks = torch.where(e0, s0, torch.where(e1, s1, torch.where(e2, s2, cap)))
+
+    def code(*pairs):
+        out = torch.full_like(s0, 3)
+        for cond, val in reversed(pairs):
+            out = torch.where(cond, torch.full_like(s0, val), out)
+        return out
+
+    t0 = code((e0, 0), (e1, 1), (e2, 2))
+    t1 = code((e0 & e1, 1), ((e0 | e1) & e2, 2))
+    t2 = code((e0 & e1 & e2, 2))
+    return ranks, t0 + (t1 << 2) + (t2 << 4)
+
+
+def down_plan_from_f2c(f2c: torch.Tensor, up_off: torch.Tensor,
+                       fine_valid: torch.Tensor,
+                       coarse_capacity: int) -> torch.Tensor:
+    """(S, Vc, 8) stride-2 gather map as the inverse of (f2c, up_off): each
+    fine site f is the unique input of coarse site f2c[f] at kernel offset
+    up_off[f], so ``down_nbr[f2c[f], up_off[f]] = f`` (one collision-free
+    scatter; misses stay -1)."""
+    s, vf = f2c.shape
+    vc = int(coarse_capacity)
+    ok = fine_valid & (f2c >= 0)
+    flat = torch.where(ok, f2c * 8 + up_off, torch.full_like(f2c, vc * 8))
+    src = torch.arange(vf, device=f2c.device).expand(s, vf)
+    out = torch.full((s, vc * 8 + 1), -1, dtype=torch.int64,
+                     device=f2c.device)
+    return out.scatter_(1, flat, src)[:, :-1].reshape(s, vc, 8)
+
+
+def up_offset_index(coords: torch.Tensor) -> torch.Tensor:
+    """Per fine-site deconv kernel-offset index ``4*(x%2) + 2*(y%2) + z%2``."""
+    rem = coords % 2
+    return rem[..., 0] * 4 + rem[..., 1] * 2 + rem[..., 2]
+
+
+def _masked_take(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of feats at idx; idx < 0 yields zeros."""
+    out = feats[idx.clamp(0, feats.shape[0] - 1)]
+    return torch.where((idx >= 0)[:, None], out, torch.zeros_like(out))
+
+
+def submanifold_conv_wide_ref(feats: torch.Tensor, ranks: torch.Tensor,
+                              sel: torch.Tensor,
+                              weight: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the K1 kernel: gather, dz-align, one GEMM.
+
+    feats (V, Cin); ranks/sel (V*9,) over the flat global plan; weight
+    (27, Cin, Cout). Window rows past the table read zero (the all-miss
+    sentinel of the last sample is V); rows whose dz code is 3 contribute
+    nothing. The centre column is gathered like the other 8: its rank is
+    ``v - e0``, the same rows the reference reads by shifts.
+    """
+    v, cin = feats.shape
+    k, _, cout = weight.shape
+    fp = torch.cat([feats, feats.new_zeros(2, cin)])
+    base = ranks.reshape(v, 9).long().clamp(0, v - 1)
+    codes = sel.reshape(v, 9)
+    g = [fp[base + j] for j in range(3)]                   # (V, 9, Cin) each
+    t = [(codes >> (2 * j)) & 3 for j in range(3)]
+    zero = torch.zeros_like(g[0])
+    slots = []
+    for slot in range(3):  # codes strictly increase, so slot t takes j <= t
+        acc = zero
+        for j in range(slot + 1):
+            acc = acc + torch.where((t[j] == slot)[..., None], g[j], zero)
+        slots.append(acc)
+    aligned = torch.stack(slots, dim=2).reshape(v, 27 * cin)
+    return aligned @ weight.reshape(k * cin, cout).to(feats.dtype)
+
+
+def submanifold_conv_wide(feats: torch.Tensor, plan: WidePlan,
+                          weight: torch.Tensor) -> torch.Tensor:
+    """Submanifold 3x3x3 conv over a flat :class:`WidePlan`.
+
+    A CUDA tensor always runs the hand-written K1 kernel (a build or launch
+    failure raises); a CPU tensor runs the plain twin."""
+    if feats.is_cuda:
+        from mopa_tpu_torch.ops import sparse_conv_cuda
+
+        return sparse_conv_cuda.submanifold_conv_wide_cuda(
+            feats, plan.ranks, plan.sel, weight)
+    return submanifold_conv_wide_ref(feats, plan.ranks, plan.sel, weight)
+
+
+def strided_conv(fine_feats: torch.Tensor, down_nbr: torch.Tensor,
+                 weight: torch.Tensor) -> torch.Tensor:
+    """Stride-2 conv: out (Vc, Cout) = sum_o fine[down_nbr[:, o]] @ W[o]
+    over the (Vc, 8) gather map (misses contribute zero)."""
+    vc = down_nbr.shape[0]
+    k, cin, cout = weight.shape
+    gathered = _masked_take(fine_feats, down_nbr.reshape(-1))
+    return gathered.reshape(vc, k * cin) @ weight.reshape(k * cin, cout).to(
+        fine_feats.dtype)
+
+
+def deconv(coarse_feats: torch.Tensor, f2c: torch.Tensor,
+           up_off: torch.Tensor, weight: torch.Tensor,
+           fine_valid: torch.Tensor) -> torch.Tensor:
+    """Stride-2 transposed conv onto the fine level's active sites:
+    out[f] = coarse[f2c[f]] @ W[up_off[f]] (zero at invalid fine sites)."""
+    k, cin, cout = weight.shape
+    gathered = _masked_take(coarse_feats, f2c)                     # (Vf, Cin)
+    w_all = weight.to(coarse_feats.dtype).permute(1, 0, 2).reshape(
+        cin, k * cout)
+    y = (gathered @ w_all).reshape(-1, k, cout)
+    out = y.gather(1, up_off[:, None, None].expand(-1, 1, cout))[:, 0]
+    return torch.where(fine_valid[:, None], out, torch.zeros_like(out))
+
+
+def batch_norm_act(feats: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, running_mean: torch.Tensor,
+                   running_var: torch.Tensor, *, eps: float = 1e-4,
+                   leakiness: float = 0.0, act: bool = True) -> torch.Tensor:
+    """Eval-mode batch norm + (leaky) ReLU over voxels with running
+    statistics (``scn.BatchNormLeakyReLU``, eps 1e-4), computed in float32
+    and returned in the feature dtype."""
+    f32 = feats.float()
+    out = (f32 - running_mean) * (torch.rsqrt(running_var + eps) * scale) \
+        + bias
+    if act:
+        out = torch.where(out >= 0, out, leakiness * out) if leakiness > 0 \
+            else torch.relu(out)
+    return out.to(feats.dtype)
