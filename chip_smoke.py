@@ -5,27 +5,39 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Build the K1 kernel (``mopa_tpu_torch/csrc/submanifold_conv.cu``, nvcc for
-   sm_90a, into ``mopa_tpu_torch/_build/``); print the card's name and power
-   limit, the build seconds and the compiler's register/spill report.
-2. Hold K1 against its plain PyTorch twin (``submanifold_conv_wide_ref``) on
-   the card at every (Cin, Cout) of the SCN UNet's 14 submanifold convs, on
-   the plans of one and of eight seeded 16,384-point synthetic scans: float32
-   to atol = rtol = 1e-4, bfloat16 to max|err| <= 2e-2 * max|ref|. Time each
-   with CUDA events (median of 20 launches after a warm-up), beside the twin,
-   and compute the card's bound for the same work.
+1. Build the kernels (``mopa_tpu_torch/csrc/*.cu``, one nvcc per source, in
+   parallel, for sm_90a, into ``mopa_tpu_torch/_build/``); print the card's
+   name and power limit, the build seconds and the compiler's register/spill
+   report.
+2. Hold each kernel against its plain PyTorch twin on the card at every
+   (Cin, Cout) of the SCN UNet's 14 submanifold convs: K1 (forward) on the
+   plans of one and of eight seeded 16,384-point synthetic scans and on the
+   fused 16-scan plan of a train step; K2 (backward: ``d_feats`` and
+   ``d_w``) on that train plan. float32 to atol = rtol = 1e-4 (``d_w``:
+   max|err| <= 1e-4 * max|ref|), bfloat16 to max|err| <= 2e-2 * max|ref|.
+   One ``d_w`` shape runs twice and must give the same bits. Time each with
+   CUDA events (median of 20 launches after a warm-up), beside the twin, and
+   compute the card's bound for the same work.
 3. The eval step at full width (UNetResNet34 + SCN m=16, 7 planes, 10 classes,
    dual heads, 302x480 images, 16,384-point budget) in bfloat16: 3 requests
    of batch 1, then 1 of batch 8, with launch counts reset just before and
-   read just after (14 K1 launches per 3D forward). Then the same requests
-   with the plain twin swapped in: argmax agreement >= 0.99 on valid points
-   and max probability delta <= 2e-2. One batch-1 request in float32 against
-   the plain twin on the card and against the whole port on the CPU, to
-   atol 1e-3. Per-request milliseconds and peak memory are printed, then
-   5 warm requests of each shape and one request traced by
-   ``torch.profiler`` (device busy share, kernel times, and the stage
-   ranges that ``make_eval_step`` marks).
-4. Print the kernels line (JSON), the card line, then
+   read just after (14 K1 launches per 3D forward, no K2). Then the same
+   requests with the plain twins swapped in: argmax agreement >= 0.99 on
+   valid points and max probability delta <= 2e-2. One batch-1 request in
+   float32 against the plain twins on the card and against the whole port on
+   the CPU, to atol 1e-3. Per-request milliseconds and peak memory, 5 warm
+   requests of each shape and one request traced by ``torch.profiler``.
+4. The pre-EMA MoPA train step at full width in bfloat16 (8 source + 8
+   target scans, Adam, SAM consistency on, VGI off): 3 steps on distinct
+   batches with launch counts reset just before and read just after (per
+   step 14 K1, 13 K2 ``d_feats``, 14 K2 ``d_w``), every loss finite; then 5
+   steps on one repeated batch, after which ``total_loss`` must be below its
+   first value. Then one float32 step of 1 + 1 scans three ways (kernels,
+   plain twins on the card, the whole port on the CPU): losses to 1e-3
+   relative, every gradient to 1e-3 of its tensor's largest. Then the median
+   of 5 warm bfloat16 steps, the peak memory, and one step traced by
+   ``torch.profiler`` split by ``trainer.TRAIN_STAGES``.
+5. Print the kernels line (JSON), the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Weights are random from a seed. Details go to ``chiprun_out/chip_smoke.json``.
@@ -39,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import ExitStack
 from pathlib import Path
 from unittest import mock
 
@@ -51,8 +64,16 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 POINT_BUDGET = 16384
 IMAGE_SIZE = (480, 302)  # (W, H), the KITTI geometry of bench.py
 NUM_CLASSES = 10
+TRAIN_BATCH = 8          # TRAIN.BATCH_SIZE of xmuda_pl_mopa.yaml
+M, NUM_PLANES = 16, 7
 TIMED_LAUNCHES = 20
 WARM_REQUESTS = 5
+COUNTED_STEPS = 3
+REPEATED_STEPS = 5
+
+K1 = "K1 submanifold_conv_fwd"
+K2_DFEATS = "K2 submanifold_conv_bwd_dfeats"
+K2_DW = "K2 submanifold_conv_bwd_dw"
 
 
 def fail(msg: str) -> None:
@@ -69,9 +90,10 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def make_cfg(dtype: str):
+def make_cfg(dtype: str, train: bool = False, batch_size: int = TRAIN_BATCH):
     """The shipped a2d2_semantic_kitti/xmuda_pl_mopa.yaml model pair, in code
-    (no YAML on the card's machine)."""
+    (no YAML on the card's machine); with ``train`` also its optimizer,
+    schedule and loss weights, with VGI (``lambda_pc_mm``) off."""
     from mopa_tpu_torch.config.xmuda import cfg
 
     c = cfg.clone()
@@ -81,19 +103,40 @@ def make_cfg(dtype: str):
     c.MODEL_3D.NUM_CLASSES = NUM_CLASSES
     c.MODEL_2D.DUAL_HEAD = True
     c.MODEL_3D.DUAL_HEAD = True
-    c.MODEL_3D.SCN.m = 16
-    c.MODEL_3D.SCN.num_planes = 7
+    c.MODEL_3D.SCN.m = M
+    c.MODEL_3D.SCN.num_planes = NUM_PLANES
     c.TPU.POINT_BUDGET = POINT_BUDGET
     c.TPU.COMPUTE_DTYPE = dtype
     c.RNG_SEED = 0
+    if train:
+        for net in (c.OPTIMIZER.MODEL_2D, c.OPTIMIZER.MODEL_3D):
+            net.TYPE = "Adam"
+            net.BASE_LR = 0.001
+        c.SCHEDULER.TYPE = "MultiStepLR"
+        c.SCHEDULER.MultiStepLR.gamma = 0.1
+        c.SCHEDULER.MultiStepLR.milestones = (80000, 90000)
+        c.SCHEDULER.MAX_ITERATION = 100000
+        c.TRAIN.BATCH_SIZE = batch_size
+        c.TRAIN.CLASS_WEIGHTS = [1.89090012, 2.0585112, 3.1970535, 3.1111633,
+                                 1., 2.93751704, 1.92053733, 1.47886874,
+                                 1.04654198, 1.78266561]
+        c.TRAIN.XMUDA.lambda_xm_src = 0.1
+        c.TRAIN.XMUDA.lambda_xm_trg = 0.01
+        c.TRAIN.XMUDA.lambda_pl = 1.0
+        c.TRAIN.PC_MM.lambda_pc_mm = 0.0   # VGI: not ported yet
+        c.TRAIN.PC_MM.lambda_sam_cons = 0.01
+        c.TRAIN.PC_MM.ema_start_iter = 70000
+        c.TRAIN.PC_MM.ema_alpha_teacher = 0.999
+        c.TRAIN.PC_MM.ema_update_period = 1
+        c.TRAIN.PC_MM.use_class_weights = True
     c.freeze()
     return c
 
 
-def conv_shapes(m: int = 16, num_planes: int = 7):
+def conv_shapes():
     """(name, level, Cin, Cout) of the 14 submanifold convs of one forward."""
-    planes = [(i + 1) * m for i in range(num_planes)]
-    out = [("stem", 0, 1, m)]
+    planes = [(i + 1) * M for i in range(NUM_PLANES)]
+    out = [("stem", 0, 1, M)]
     for l, p in enumerate(planes):
         out.append(("l{}_conv1".format(l), l, p, p))
     for l, p in enumerate(planes[:-1]):
@@ -118,8 +161,33 @@ def cuda_median_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(plans: dict, device) -> list:
-    """K1 vs its plain twin at every conv shape of every plan and dtype."""
+def _check(kernel, tag, got, ref, elementwise: bool) -> tuple:
+    """(max|err|, max|ref|, tolerance) after failing on a disagreement.
+    float32: elementwise atol = rtol = 1e-4, or max|err| <= 1e-4 * max|ref|
+    where the values are sums of a whole voxel range (``d_w``); bfloat16:
+    max|err| <= 2e-2 * max|ref|."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    ref_max = float(ref.abs().max())
+    if "bfloat16" in tag:
+        ok, tol = err <= 2e-2 * ref_max, "max|err| <= 2e-2*max|ref|"
+    elif elementwise:
+        ok = bool(((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+        tol = "atol=rtol=1e-4"
+    else:
+        ok, tol = err <= 1e-4 * ref_max, "max|err| <= 1e-4*max|ref|"
+    if not ok or not bool(torch.isfinite(got).all()):
+        fail("{} disagrees with its plain twin at {}: max|err| {} "
+             "(max|ref| {}, {})".format(kernel, tag, err, ref_max, tol))
+    return err, ref_max, tol
+
+
+def kernel_phase(plans: dict, backward_plan: str, device) -> list:
+    """Each kernel vs its plain twin at every conv shape of every plan and
+    dtype: K1 on every plan, K2 on ``backward_plan``. A row per (kernel,
+    plan, conv, dtype) with the error, the times and the bound."""
     import torch
 
     from mopa_tpu_torch.ops import sparse_conv as sc
@@ -134,63 +202,87 @@ def kernel_phase(plans: dict, device) -> list:
             codes = lv.sel.long()
             pairs = sum(int((((codes >> (2 * j)) & 3) != 3).sum())
                         for j in range(3))
+            plan_bytes = 2 * v * 9 * 4
             for dtype in (torch.float32, torch.bfloat16):
-                feats = torch.randn((v, cin), generator=gen, device=device,
-                                    dtype=torch.float32).to(dtype)
+                dt_name = str(dtype).split(".")[-1]
+                tag = "{} {} {}".format(plan_name, name, dt_name)
+                esz = torch.tensor([], dtype=dtype).element_size()
+                # batch norm writes its bias into padding rows: no input
+                # row is zero, padding included
+                feats = torch.randn((v, cin), generator=gen, device=device
+                                    ).to(dtype)
                 w = (torch.randn((27, cin, cout), generator=gen,
                                  device=device)
                      * (2.0 / (27 * cin)) ** 0.5).to(dtype)
-
-                def kern():
-                    return scc.submanifold_conv_wide_cuda(feats, lv.ranks,
-                                                          lv.sel, w)
-
-                def plain():
-                    return sc.submanifold_conv_wide_ref(feats, lv.ranks,
-                                                        lv.sel, w)
-
-                got, ref = kern().float(), plain().float()
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                ref_max = float(ref.abs().max())
-                if dtype == torch.float32:
-                    ok = bool(((got - ref).abs()
-                               <= 1e-4 + 1e-4 * ref.abs()).all())
-                    tol = "atol=rtol=1e-4"
-                else:
-                    ok = err <= 2e-2 * ref_max
-                    tol = "max|err| <= 2e-2*max|ref|"
-                if not ok or not torch.isfinite(got).all():
-                    fail("K1 disagrees with its plain twin at {} {} {}: "
-                         "max|err| {} (max|ref| {}, {})".format(
-                             plan_name, name, dtype, err, ref_max, tol))
-                esz = feats.element_size()
-                nbytes = (v * cin * esz + 2 * v * 9 * 4
-                          + 27 * cin * cout * esz + v * cout * esz)
-                flops = 2 * cin * cout * pairs
-                dt_name = str(dtype).split(".")[-1]
-                rows.append({
-                    "plan": plan_name, "conv": name, "cin": cin, "cout": cout,
-                    "voxel_rows": v, "neighbour_pairs": pairs,
-                    "dtype": dt_name, "max_abs_err": err, "max_abs_ref": ref_max,
-                    "tolerance": tol,
-                    "ms": cuda_median_ms(kern),
-                    "plain_ms": cuda_median_ms(plain),
-                    "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                    "ops_ms": flops / PEAK_FLOPS[dt_name] * 1e3,
-                })
+                g = torch.randn((v, cout), generator=gen, device=device
+                                ).to(dtype)
+                cases = [(K1, True,
+                          lambda: scc.submanifold_conv_wide_cuda(
+                              feats, lv.ranks, lv.sel, w),
+                          lambda: sc.submanifold_conv_wide_ref(
+                              feats, lv.ranks, lv.sel, w),
+                          (v * cin + 27 * cin * cout + v * cout) * esz
+                          + plan_bytes)]
+                if plan_name == backward_plan:
+                    cases += [
+                        (K2_DFEATS, True,
+                         lambda: scc.submanifold_conv_wide_bwd_dfeats_cuda(
+                             g, lv.ranks, lv.sel, w),
+                         lambda: sc.submanifold_conv_wide_dfeats_ref(
+                             g, lv.ranks, lv.sel, w),
+                         (v * cout + 27 * cin * cout + v * cin) * esz
+                         + plan_bytes),
+                        (K2_DW, False,
+                         lambda: scc.submanifold_conv_wide_bwd_dw_cuda(
+                             g, feats, lv.ranks, lv.sel),
+                         lambda: sc.submanifold_conv_wide_dw_ref(
+                             g, feats, lv.ranks, lv.sel),
+                         (v * cout + v * cin) * esz + 27 * cin * cout * 4
+                         + plan_bytes)]
+                for kernel, elementwise, kern, plain, nbytes in cases:
+                    got, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    err, ref_max, tol = _check(kernel, tag, got, ref,
+                                               elementwise)
+                    row = {
+                        "kernel": kernel, "plan": plan_name, "conv": name,
+                        "cin": cin, "cout": cout, "voxel_rows": v,
+                        "neighbour_pairs": pairs, "dtype": dt_name,
+                        "max_abs_err": err, "max_abs_ref": ref_max,
+                        "tolerance": tol,
+                        "ms": cuda_median_ms(kern),
+                        "plain_ms": cuda_median_ms(plain),
+                        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                        "ops_ms": 2 * cin * cout * pairs
+                        / PEAK_FLOPS[dt_name] * 1e3}
+                    if kernel == K2_DW and name == "l0_conv2":
+                        again = kern()
+                        row["same_bits_on_rerun"] = bool(torch.equal(got,
+                                                                     again))
+                        if not row["same_bits_on_rerun"]:
+                            fail("K2 d_w gave other bits on a rerun at "
+                                 + tag)
+                    rows.append(row)
+                    print("{kernel} {plan} {conv} ({cin},{cout}) {dtype}: "
+                          "{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                          "{b:.4f} ms) max|err| {max_abs_err:.3g}".format(
+                              b=max(row["bytes_ms"], row["ops_ms"]), **row),
+                          flush=True)
     return rows
 
 
-def plain_twin():
-    """Patch the 3D net's submanifold conv to the plain twin."""
+def plain_twins():
+    """Patch the sparse conv's kernel dispatch to the plain twins: the
+    autograd Function then runs K1's and K2's twins on CUDA tensors too."""
     from mopa_tpu_torch.ops import sparse_conv as sc
 
-    def plain(feats, plan, weight):
-        return sc.submanifold_conv_wide_ref(feats, plan.ranks, plan.sel,
-                                            weight)
-
-    return mock.patch.object(sc, "submanifold_conv_wide", plain)
+    stack = ExitStack()
+    for name, twin in (("_conv_fwd", sc.submanifold_conv_wide_ref),
+                       ("_conv_bwd_dfeats",
+                        sc.submanifold_conv_wide_dfeats_ref),
+                       ("_conv_bwd_dw", sc.submanifold_conv_wide_dw_ref)):
+        stack.enter_context(mock.patch.object(sc, name, twin))
+    return stack
 
 
 def check_outputs(out, batch, tag: str) -> None:
@@ -239,70 +331,87 @@ def compare(a, b, batch, tag: str, *, atol=None, agree_min=None,
     return res
 
 
-def timed_request(step, batch) -> tuple:
+def timed_call(fn, *args) -> tuple:
+    """(result, host-clock ms, peak MiB) of one synchronised call."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = step(batch)
+    out = fn(*args)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     return out, ms, torch.cuda.max_memory_allocated() / 2 ** 20
 
 
-def profile_request(step, batch, top: int = 12) -> dict:
+def profile_call(fn, stages, top: int = 12) -> dict:
     """Device time by kernel name, the device's busy share, and each stage's
-    times over one request traced by ``torch.profiler`` (tracing adds host
+    times over one call traced by ``torch.profiler`` (tracing adds host
     overhead).
 
-    The stages are the ``record_function`` ranges of ``make_eval_step``
-    (``validate.STAGES``): ``host_ms`` is the range on the host clock,
-    ``device_span_ms`` its extent on the card's timeline (first to last of
-    its kernels), ``device_kernel_ms`` the kernel time inside that extent."""
+    The stages are ``record_function`` ranges the call marks. ``host_ms`` is
+    the range on the host clock. A kernel belongs to the stage whose host
+    range holds the runtime call that launched it (matched by the trace's
+    correlation id), whichever thread made the call: autograd launches the
+    backward from a thread of its own, while the main thread waits inside
+    its range. ``device_kernel_ms`` sums a stage's kernels,
+    ``device_span_ms`` spans its first to its last kernel on the card, and
+    ``top_kernels_ms`` lists its largest kernels by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from mopa_tpu_torch.data.utils.validate import STAGES
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    host_us = dict.fromkeys(STAGES, 0.0)
-    card_span = {}
-    kernels = []
-    for e in prof.events():
-        on_card = getattr(e, "device_type", None) == DeviceType.CUDA
-        start, end = e.time_range.start, e.time_range.end
-        if e.name in host_us:
-            if on_card:
-                s0, e0 = card_span.get(e.name, (start, end))
-                card_span[e.name] = (min(s0, start), max(e0, end))
-            else:
-                host_us[e.name] += end - start
-            continue
-        if on_card and not getattr(e, "is_user_annotation", False):
-            kernels.append((e.name, start, end))
+    ranges = {name: [] for name in stages}
+    launch_ns, kernels = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == DeviceType.CUDA:
+            if not ev.is_user_annotation():
+                kernels.append((name, ev.start_ns(),
+                                ev.start_ns() + ev.duration_ns(),
+                                ev.correlation_id()))
+        elif name in ranges:
+            ranges[name].append((ev.start_ns(),
+                                 ev.start_ns() + ev.duration_ns()))
+        elif name.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
+                              "cudaMemset")):
+            launch_ns[ev.correlation_id()] = ev.start_ns()
     if not kernels:
         return {"device_time": "not measured (no device events traced)"}
-    stages = {}
-    for name in STAGES:
-        st = {"host_ms": host_us[name] / 1e3,
-              "device_span_ms": "not measured",
-              "device_kernel_ms": "not measured"}
-        if name in card_span:
-            s0, e0 = card_span[name]
-            st["device_span_ms"] = (e0 - s0) / 1e3
-            st["device_kernel_ms"] = sum(
-                e - s for _, s, e in kernels if s0 <= s < e0) / 1e3
-        stages[name] = st
+
+    def stage_of(corr):
+        t = launch_ns.get(corr)
+        for name, spans in ranges.items():
+            if t is not None and any(a <= t <= b for a, b in spans):
+                return name
+        return "(no stage)"
+
+    per_stage = {}
+    for name, s0, e0, corr in kernels:
+        per_stage.setdefault(stage_of(corr), []).append((name, s0, e0))
+    out_stages = {}
+    for name in list(stages) + ["(no stage)"]:
+        ks = per_stage.get(name, [])
+        st = {"host_ms": sum(b - a for a, b in ranges.get(name, [])) / 1e6,
+              "device_kernel_ms": sum(e - s for _, s, e in ks) / 1e6,
+              "device_span_ms": (max(e for _, _, e in ks)
+                                 - min(s for _, s, _ in ks)) / 1e6
+              if ks else 0.0}
+        by_name = {}
+        for kname, s0, e0 in ks:
+            by_name[kname[:90]] = by_name.get(kname[:90], 0.0) + (e0 - s0)
+        st["top_kernels_ms"] = [[k, ns / 1e6] for k, ns in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:6]]
+        out_stages[name] = st
     busy, cur_s, cur_e, by_name = 0.0, None, None, {}
-    for name, s, e in sorted(kernels, key=lambda k: k[1]):
+    for name, s, e, _ in sorted(kernels, key=lambda k: k[1]):
         by_name[name] = by_name.get(name, 0.0) + (e - s)
         if cur_e is None or s > cur_e:
             if cur_e is not None:
@@ -312,17 +421,286 @@ def profile_request(step, batch, top: int = 12) -> dict:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     names = sorted(by_name.items(), key=lambda kv: -kv[1])
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / wall_us,
-            "device_kernel_ms_total": sum(by_name.values()) / 1e3,
-            "stages": stages,
-            "top_device_ms": [[n[:90], us / 1e3] for n, us in names[:top]]}
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e6,
+            "device_idle_share": 1.0 - busy / 1e3 / wall_us,
+            "device_kernel_ms_total": sum(by_name.values()) / 1e6,
+            "stages": out_stages,
+            "top_device_ms": [[n[:90], ns / 1e6] for n, ns in names[:top]]}
 
 
-def warm_requests(step, batch, n: int = WARM_REQUESTS) -> list:
-    """Host-clock milliseconds of ``n`` back-to-back requests on a shape the
-    step has already run (cuDNN plans and allocator pools warm)."""
-    return [timed_request(step, batch)[1] for _ in range(n)]
+def eval_phase(batches_1, batch_8, device) -> dict:
+    """Phase 3: the eval requests, their checks, times and profile."""
+    from mopa_tpu_torch.data.utils.validate import STAGES, make_eval_step
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.train import trainer
+
+    report = {}
+    cfg = make_cfg("bfloat16")
+    models = trainer.build_models(cfg, device=device, seed=0)
+    step = make_eval_step(cfg, models)
+    requests = [("batch1", b) for b in batches_1] + [("batch8", batch_8)]
+    scc.reset_launch_counts()
+    outs, req_report = [], []
+    for tag, batch in requests:
+        out, ms, peak = timed_call(step, batch)
+        check_outputs(out, batch, tag)
+        outs.append(out)
+        req_report.append({"request": tag, "ms": ms, "peak_mib": peak})
+        print("eval request {} bf16: {:.2f} ms, peak {:.0f} MiB".format(
+            tag, ms, peak), flush=True)
+    launches = dict(scc.launches)
+    want = {K1: len(conv_shapes()) * len(requests), K2_DFEATS: 0, K2_DW: 0}
+    if launches != want:
+        fail("eval path launched {}, expected {}".format(launches, want))
+    report["requests"] = req_report
+    report["launches"] = launches
+
+    with plain_twins():
+        for (tag, batch), out, rr in zip(requests, outs, req_report):
+            ref, ms, _ = timed_call(step, batch)
+            rr["plain_ms"] = ms
+            rr["vs_plain"] = compare(out, ref, batch, tag + " bf16",
+                                     agree_min=0.99, delta_max=2e-2)
+            print("  {} vs plain twin: {}".format(tag, rr["vs_plain"]))
+
+    warm = {"batch1": [timed_call(step, batches_1[0])[1]
+                       for _ in range(WARM_REQUESTS)],
+            "batch8": [timed_call(step, batch_8)[1]
+                       for _ in range(WARM_REQUESTS)]}
+    report["warm_requests_ms"] = warm
+    report["warm_batch1_median_ms"] = statistics.median(warm["batch1"])
+    report["warm_batch8_median_ms"] = statistics.median(warm["batch8"])
+    report["warm_batch8_scans_per_s"] = 8e3 / report["warm_batch8_median_ms"]
+    print("warm eval requests bf16 (ms): batch1 {} batch8 {}; batch8 "
+          "median {:.2f} ms = {:.1f} scans/s".format(
+              warm["batch1"], warm["batch8"], report["warm_batch8_median_ms"],
+              report["warm_batch8_scans_per_s"]))
+    report["profile_batch8"] = profile_call(lambda: step(batch_8), STAGES)
+    print("eval profile batch8 bf16: {}".format(report["profile_batch8"]))
+    del models, step, outs
+
+    cfg32 = make_cfg("float32")
+    models32 = trainer.build_models(cfg32, device=device, seed=0)
+    step32 = make_eval_step(cfg32, models32)
+    b = batches_1[0]
+    out32, ms32, _ = timed_call(step32, b)
+    check_outputs(out32, b, "batch1 f32")
+    with plain_twins():
+        ref32 = step32(b)
+    cpu_models = trainer.build_models(cfg32, device="cpu", seed=0)
+    cpu32 = make_eval_step(cfg32, cpu_models)(b)
+    report["f32"] = {
+        "ms": ms32,
+        "vs_plain": compare(out32, ref32, b, "batch1 f32", atol=1e-3),
+        "vs_cpu": compare(out32, cpu32, b, "batch1 f32 vs cpu", atol=1e-3)}
+    print("eval request batch1 f32: {:.2f} ms; vs plain {}; vs cpu {}".format(
+        ms32, report["f32"]["vs_plain"], report["f32"]["vs_cpu"]))
+    return report
+
+
+def train_batches(n: int, batch_size: int, start: int) -> list:
+    """``n`` (source, target) train batch pairs of ``batch_size`` scans."""
+    from mopa_tpu_torch.data import synthetic
+
+    out = []
+    for i in range(n):
+        idx = start + i * batch_size
+        out.append(tuple(synthetic.train_batch(
+            batch_size, POINT_BUDGET, start_index=idx, image_size=IMAGE_SIZE,
+            domain=d, num_classes=NUM_CLASSES) for d in ("source", "target")))
+    return out
+
+
+def _losses(metrics) -> dict:
+    return {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+
+
+def lift_bn_biases(models, value: float = 3.0) -> None:
+    """Every batch-norm bias to ``value``. Float32 on the card and on the CPU
+    differ by ~1e-6 in the forward; a ReLU input within that of 0 can land
+    on either side of the kink and move the gradients of everything before
+    it. Biases of 3 keep the ReLU inputs away from 0 (about 0.1 % stay
+    masked), so the gradients can be compared at 1e-3."""
+    import torch
+
+    with torch.no_grad():
+        for model in models:
+            for mod in model.modules():
+                if isinstance(getattr(mod, "scale", None), torch.nn.Parameter):
+                    mod.bias.fill_(value)
+
+
+def f32_step_three_ways(device) -> dict:
+    """One float32 step of 1 + 1 scans: kernels, plain twins on the card, the
+    whole port on the CPU. Dropout is off (the card's and the CPU's
+    generators draw other masks)."""
+    import torch
+
+    from mopa_tpu_torch.train import trainer
+
+    cfg = make_cfg("float32", train=True, batch_size=1)
+    (src, trg), = train_batches(1, 1, 400)
+
+    def run(dev, twins: bool):
+        models = trainer.build_models(cfg, device=dev, seed=0)
+        models.model_2d.net_2d.dropout_rate = 0.0
+        lift_bn_biases(models[:2])
+        state = trainer.create_train_state(cfg, models)
+        step = trainer.make_train_step(cfg, models, with_pl=True)
+        with plain_twins() if twins else ExitStack():
+            _, metrics = step(state, src, trg)
+        grads = {}
+        for net, model in (("2d", models.model_2d), ("3d", models.model_3d)):
+            for name, prm in model.named_parameters():
+                if prm.grad is None:
+                    fail("f32 train step: no gradient for {} {}".format(
+                        net, name))
+                grads[net + ":" + name] = prm.grad.detach().float().cpu()
+        return _losses(metrics), grads
+
+    kern_l, kern_g = run(device, False)
+    res = {"losses": kern_l}
+    for tag, dev, twins in (("vs_plain", device, True), ("vs_cpu", "cpu",
+                                                         False)):
+        ref_l, ref_g = run(dev, twins)
+        loss_rel = {k: abs(kern_l[k] - ref_l[k]) / max(abs(ref_l[k]), 1e-12)
+                    for k in ref_l}
+        bad = {k: r for k, r in loss_rel.items() if r > 1e-3}
+        if bad or set(kern_l) != set(ref_l):
+            fail("f32 train step {}: losses differ beyond 1e-3: {}".format(
+                tag, bad))
+        top = {net: max(float(g.abs().max()) for k, g in ref_g.items()
+                        if k.startswith(net)) for net in ("2d", "3d")}
+        worst, worst_name = 0.0, None
+        for k, ref in ref_g.items():
+            scale = float(ref.abs().max())
+            err = float((kern_g[k] - ref).abs().max())
+            if k.endswith((".conv.bias", ".tconv.bias")):
+                # feeds a batch norm: the exact gradient is 0
+                if max(err, scale) > 1e-3 * top[k.split(":")[0]]:
+                    fail("f32 train step {}: {} not ~0: {}".format(
+                        tag, k, err))
+                continue
+            if err > 1e-3 * scale:
+                fail("f32 train step {}: gradient {} differs by {} (max|g| "
+                     "{})".format(tag, k, err, scale))
+            if err / max(scale, 1e-30) > worst:
+                worst, worst_name = err / max(scale, 1e-30), k
+        res[tag] = {"max_loss_rel": max(loss_rel.values()),
+                    "max_grad_rel": worst, "max_grad_rel_tensor": worst_name}
+        print("f32 train step 1+1 {}: {}".format(tag, res[tag]), flush=True)
+    return res
+
+
+def net3d_backward_ms(cfg, models, src, trg, device, n: int = 3) -> float:
+    """Median CUDA-event time of the 3D net's backward alone (13 K2
+    ``d_feats``, 14 K2 ``d_w`` and the autograd of its other ops) over the
+    fused plan of one train batch pair, for the sum of its outputs."""
+    import torch
+
+    from mopa_tpu_torch.train import trainer
+    from mopa_tpu_torch.train.common import decode_batch
+
+    bs, bt = decode_batch(src, device), decode_batch(trg, device)
+    b, p = bs["img_indices"].shape[:2]
+    plan = trainer.build_plan_from_batch(
+        cfg, torch.cat([bs["coords"], bt["coords"]]),
+        torch.cat([bs["point_valid"], bt["point_valid"]]).reshape(-1), p,
+        sample_domains=[0] * b + [1] * b)
+    feats = torch.cat([bs["feats"], bt["feats"]])
+    times = []
+    for _ in range(n):
+        out = models.model_3d(feats, plan, n_domains=2)
+        loss = sum(v.float().sum() for v in out.values())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss.backward()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    models.model_3d.zero_grad(set_to_none=True)
+    return statistics.median(times)
+
+
+def train_phase(batches, device) -> dict:
+    """Phase 4: the bf16 train step at full width over ``batches`` (one
+    (source, target) pair per counted step), its launch counts, its falling
+    loss, the f32 three-way check, times, memory and profile."""
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.train import trainer
+
+    report = {}
+    cfg = make_cfg("bfloat16", train=True)
+    models = trainer.build_models(cfg, device=device, seed=0)
+    state = trainer.create_train_state(cfg, models)
+    step = trainer.make_train_step(cfg, models, with_pl=True)
+
+    scc.reset_launch_counts()
+    steps = []
+    for i, (src, trg) in enumerate(batches):
+        (state, metrics), ms, peak = timed_call(step, state, src, trg)
+        losses = _losses(metrics)
+        if not all(torch.isfinite(torch.tensor(list(losses.values())))):
+            fail("train step {}: non-finite loss {}".format(i, losses))
+        steps.append({"ms": ms, "peak_mib": peak, "losses": losses,
+                      "cm_src_3d_sum": int(metrics["cm_src_3d"].sum())})
+        print("train step {} bf16 8+8: {:.2f} ms, peak {:.0f} MiB, {}".format(
+            i, ms, peak, losses), flush=True)
+    launches = dict(scc.launches)
+    n = len(conv_shapes())
+    want = {K1: n * COUNTED_STEPS, K2_DFEATS: (n - 1) * COUNTED_STEPS,
+            K2_DW: n * COUNTED_STEPS}
+    if launches != want:
+        fail("train path launched {}, expected {}".format(launches, want))
+    report["steps"] = steps
+    report["launches"] = launches
+
+    src, trg = batches[0]
+    totals = []
+    for _ in range(REPEATED_STEPS):
+        state, metrics = step(state, src, trg)
+        totals.append(float(metrics["total_loss"]))
+    report["repeated_batch_total_loss"] = totals
+    print("total_loss over {} steps on one batch: {}".format(REPEATED_STEPS,
+                                                            totals))
+    if not totals[-1] < totals[0]:
+        fail("total_loss did not fall on a repeated batch: {}".format(totals))
+
+    warm = [timed_call(step, state, src, trg) for _ in range(WARM_REQUESTS)]
+    report["warm_steps_ms"] = [w[1] for w in warm]
+    report["warm_step_median_ms"] = statistics.median(report["warm_steps_ms"])
+    report["peak_mib"] = max(w[2] for w in warm)
+    print("warm train steps bf16 8+8 (ms): {}; median {:.2f} ms; peak {:.0f} "
+          "MiB".format(report["warm_steps_ms"], report["warm_step_median_ms"],
+                       report["peak_mib"]), flush=True)
+    report["profile"] = profile_call(lambda: step(state, src, trg),
+                                     trainer.TRAIN_STAGES, top=16)
+    print("train profile bf16 8+8: {}".format(report["profile"]), flush=True)
+    report["net3d_backward_ms"] = net3d_backward_ms(cfg, models, src, trg,
+                                                    device)
+    print("3D net backward alone, bf16 8+8: {} ms".format(
+        report["net3d_backward_ms"]), flush=True)
+    del models, state, step
+    torch.cuda.empty_cache()
+    report["f32_three_ways"] = f32_step_three_ways(device)
+    return report
+
+
+def kernel_entry(kernel: str, rows: list, launches: int, source: str,
+                 replaces: str) -> dict:
+    bytes_ms = sum(r["bytes_ms"] for r in rows)
+    ops_ms = sum(r["ops_ms"] for r in rows)
+    return {"name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
 
 
 def main() -> None:
@@ -337,7 +715,6 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
 
     from mopa_tpu_torch.data import synthetic
-    from mopa_tpu_torch.data.utils.validate import make_eval_step
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
     from mopa_tpu_torch.train import trainer
 
@@ -351,115 +728,73 @@ def main() -> None:
     t0 = time.perf_counter()
     scc.build()
     report["build_s"] = time.perf_counter() - t0
-    log = scc.library_path().with_suffix(".log")
-    report["ptxas"] = log.read_text() if log.exists() else "(cached build)"
-    print("K1 build: {:.2f} s".format(report["build_s"]))
-    print(report["ptxas"].strip())
+    report["ptxas"] = {}
+    for name in scc.SOURCES:
+        log = scc.library_path(name).with_suffix(".log")
+        report["ptxas"][name] = log.read_text() if log.exists() \
+            else "(cached build)"
+    print("kernel build ({} sources in parallel): {:.2f} s".format(
+        len(scc.SOURCES), report["build_s"]))
+    for text in report["ptxas"].values():
+        print(text.strip())
 
-    # -- data: 3 single-scan requests, then one batch of 8 scans
+    # -- data: 3 single-scan requests, one batch of 8 scans, and the fused
+    # 8 + 8 scan plan of a train step (source and target BN domains)
     batches_1 = [synthetic.eval_batch(1, POINT_BUDGET, start_index=i,
                                       image_size=IMAGE_SIZE) for i in range(3)]
     batch_8 = synthetic.eval_batch(8, POINT_BUDGET, start_index=3,
                                    image_size=IMAGE_SIZE)
+    t0 = time.perf_counter()
+    batches_t = train_batches(COUNTED_STEPS, TRAIN_BATCH, 100)
+    report["train_data_s"] = time.perf_counter() - t0
+    src, trg = batches_t[0]
     cfg = make_cfg("bfloat16")
 
-    # -- phase 2: K1 against its plain twin at every conv shape on the path
+    # -- phase 2: each kernel against its plain twin at every conv shape
     plans = {}
     for name, batch in (("batch1", batches_1[0]), ("batch8", batch_8)):
         b, p = batch["img_indices"].shape[:2]
         valid = torch.from_numpy(valid_mask(batch)).to(device)
         coords = torch.from_numpy(batch["coords"]).to(device)
         plans[name] = trainer.build_plan_from_batch(cfg, coords, valid, p)
-        report["num_voxels_" + name] = plans[name].num_voxels.tolist()
-    rows = kernel_phase(plans, device)
+    coords = torch.cat([torch.from_numpy(b["coords"]) for b in (src, trg)])
+    valid = torch.cat([torch.from_numpy(valid_mask(b)) for b in (src, trg)])
+    plans["train16"] = trainer.build_plan_from_batch(
+        cfg, coords.to(device), valid.to(device), POINT_BUDGET,
+        sample_domains=[0] * TRAIN_BATCH + [1] * TRAIN_BATCH)
+    for name, plan in plans.items():
+        report["num_voxels_" + name] = plan.num_voxels.tolist()
+    rows = kernel_phase(plans, "train16", device)
     report["kernel_rows"] = rows
-    for r in rows:
-        print("K1 {plan} {conv} ({cin},{cout}) {dtype}: {ms:.4f} ms "
-              "(plain {plain_ms:.4f} ms, bound {b:.4f} ms) "
-              "max|err| {max_abs_err:.3g}".format(
-                  b=max(r["bytes_ms"], r["ops_ms"]), **r))
+    del plans
 
-    # -- phase 3: the eval step, bfloat16, full width
-    models = trainer.build_models(cfg, device=device, seed=0)
-    step = make_eval_step(cfg, models)
-    requests = [("batch1", b) for b in batches_1] + [("batch8", batch_8)]
-    scc.reset_launch_counts()
-    outs, req_report = [], []
-    for tag, batch in requests:
-        out, ms, peak = timed_request(step, batch)
-        check_outputs(out, batch, tag)
-        outs.append(out)
-        req_report.append({"request": tag, "ms": ms, "peak_mib": peak})
-        print("eval request {} bf16: {:.2f} ms, peak {:.0f} MiB".format(
-            tag, ms, peak))
-    launches = dict(scc.launches)
-    expected = len(conv_shapes()) * len(requests)
-    if launches["K1 submanifold_conv_fwd"] != expected:
-        fail("K1 launched {} times on the main path, expected {}".format(
-            launches["K1 submanifold_conv_fwd"], expected))
-    report["requests"] = req_report
-    report["launches"] = launches
+    # -- phase 3: the eval step
+    report["eval"] = eval_phase(batches_1, batch_8, device)
+    torch.cuda.empty_cache()
 
-    with plain_twin():
-        for (tag, batch), out, rr in zip(requests, outs, req_report):
-            ref, ms, _ = timed_request(step, batch)
-            rr["plain_ms"] = ms
-            rr["vs_plain"] = compare(out, ref, batch, tag + " bf16",
-                                     agree_min=0.99, delta_max=2e-2)
-            print("  {} vs plain twin: {}".format(tag, rr["vs_plain"]))
+    # -- phase 4: the train step
+    report["train"] = train_phase(batches_t, device)
 
-    # warm request latency and batch-8 throughput (after the counted window)
-    warm = {"batch1": warm_requests(step, batches_1[0]),
-            "batch8": warm_requests(step, batch_8)}
-    report["warm_requests_ms"] = warm
-    report["warm_batch1_median_ms"] = statistics.median(warm["batch1"])
-    report["warm_batch8_median_ms"] = statistics.median(warm["batch8"])
-    report["warm_batch8_scans_per_s"] = 8e3 / report["warm_batch8_median_ms"]
-    print("warm eval requests bf16 (ms): batch1 {} batch8 {}; batch8 "
-          "median {:.2f} ms = {:.1f} scans/s".format(
-              warm["batch1"], warm["batch8"], report["warm_batch8_median_ms"],
-              report["warm_batch8_scans_per_s"]))
-    # where the time goes in a batch-8 request
-    report["profile_batch8"] = profile_request(step, batch_8)
-    print("eval profile batch8 bf16: {}".format(report["profile_batch8"]))
-    del models, step, outs
+    # -- phase 5: summary lines; each kernel at the shapes the train step
+    # gives it (the fused 16-scan plan, bfloat16)
+    train_launches = report["train"]["launches"]
 
-    # f32: kernel vs plain twin on the card, and vs the whole port on the CPU
-    cfg32 = make_cfg("float32")
-    models32 = trainer.build_models(cfg32, device=device, seed=0)
-    step32 = make_eval_step(cfg32, models32)
-    b = batches_1[0]
-    out32, ms32, _ = timed_request(step32, b)
-    check_outputs(out32, b, "batch1 f32")
-    with plain_twin():
-        ref32 = step32(b)
-    cpu_models = trainer.build_models(cfg32, device="cpu", seed=0)
-    cpu32 = make_eval_step(cfg32, cpu_models)(b)
-    report["f32"] = {
-        "ms": ms32,
-        "vs_plain": compare(out32, ref32, b, "batch1 f32", atol=1e-3),
-        "vs_cpu": compare(out32, cpu32, b, "batch1 f32 vs cpu", atol=1e-3)}
-    print("eval request batch1 f32: {:.2f} ms; vs plain {}; vs cpu {}".format(
-        ms32, report["f32"]["vs_plain"], report["f32"]["vs_cpu"]))
+    def main_rows(kernel):
+        return [r for r in rows if r["kernel"] == kernel
+                and r["plan"] == "train16" and r["dtype"] == "bfloat16"
+                and not (kernel == K2_DFEATS and r["conv"] == "stem")]
 
-    # -- phase 4: summary lines
-    main_rows = [r for r in rows
-                 if r["plan"] == "batch8" and r["dtype"] == "bfloat16"]
-    bytes_ms = sum(r["bytes_ms"] for r in main_rows)
-    ops_ms = sum(r["ops_ms"] for r in main_rows)
-    kernels = [{
-        "name": "K1 submanifold_conv_fwd",
-        "route": "cuda",
-        "source": "mopa_tpu_torch/csrc/submanifold_conv.cu",
-        "replaces": "mopa_tpu/ops/sparse_conv_pallas.py:75",
-        "launches": launches["K1 submanifold_conv_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in main_rows),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-    }]
+    src_conv = "mopa_tpu_torch/csrc/submanifold_conv.cu"
+    kernels = [
+        kernel_entry(K1, main_rows(K1), train_launches[K1], src_conv,
+                     "mopa_tpu/ops/sparse_conv_pallas.py:75"),
+        kernel_entry(K2_DFEATS, main_rows(K2_DFEATS),
+                     train_launches[K2_DFEATS], src_conv,
+                     "mopa_tpu/ops/sparse_conv_pallas.py:96"),
+        kernel_entry(K2_DW, main_rows(K2_DW), train_launches[K2_DW],
+                     "mopa_tpu_torch/csrc/submanifold_conv_dw.cu",
+                     "mopa_tpu/ops/sparse_conv_pallas.py:96"),
+    ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

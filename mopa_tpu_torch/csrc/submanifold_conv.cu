@@ -1,11 +1,16 @@
 // K1: submanifold 3x3x3 sparse convolution, forward, over a flat wide-column
-// plan. Hand-written for Hopper (sm_90a); built by nvcc into a shared library
-// with a plain C interface and called through ctypes
-// (mopa_tpu_torch/ops/sparse_conv_cuda.py).
+// plan, and the d_feats half of its backward (K2). Hand-written for Hopper
+// (sm_90a); built by nvcc into a shared library with a plain C interface and
+// called through ctypes (mopa_tpu_torch/ops/sparse_conv_cuda.py).
 //
 // Replaces the Pallas TPU kernel mopa_tpu/ops/sparse_conv_pallas.py::
-// _conv_kernel (+ _gather_window), which kept a whole per-sample feature table
-// in VMEM. A 15,564-row table does not fit an SM's shared memory, so this
+// _conv_kernel (+ _gather_window), and the d_feats half of _bwd_kernel: the
+// backward's d_feats is the SAME windowed conv of the cotangent g with the
+// mirrored, transposed weight W'[k] = W[26-k]^T (u is v's neighbour at offset
+// o iff v is u's at -o, and the offsets enumerate symmetrically). The mirror
+// mode below reads W' straight out of the forward weight, so no transposed
+// copy is made. The Pallas kernels kept a whole per-sample feature table in
+// VMEM. A 15,564-row table does not fit an SM's shared memory, so this
 // kernel works on the GLOBAL flat plan instead: no per-sample localisation.
 //
 // What it computes, for every voxel v and every (dx, dy) column c (0..8):
@@ -24,7 +29,8 @@
 // rate does (see PERF.md for the numbers).
 //
 // Design (simple and right first; wgmma/TMA come later): one CTA owns a tile
-// of 64 voxels and all Cout (<= 128) outputs, kept in registers
+// of 64 voxels and all Cout (<= 192, the widest d_feats of the backward:
+// l5_conv2's Cin) outputs, kept in registers
 // (8 voxels x ceil(Cout/32) channels per thread). It first resolves, for each
 // of its voxels, the source row of each of the 27 kernel offsets into shared
 // memory. Then, for each offset that any voxel of the tile has, it gathers the
@@ -40,7 +46,7 @@ namespace {
 
 constexpr int kTileV = 64;       // voxels per CTA
 constexpr int kChunk = 32;       // input channels per staged chunk
-constexpr int kCoutMax = 128;    // widest Cout the register tile holds
+constexpr int kCoutMax = 192;    // widest Cout the register tile holds
 constexpr int kThreadsX = 32;    // output channels per pass
 constexpr int kThreadsY = 8;     // voxel rows per pass
 constexpr int kRows = kTileV / kThreadsY;
@@ -59,16 +65,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// NM = ceil(Cout / 32): output-channel passes held per thread.
+// NM = ceil(Cout / 32): output-channel passes held per thread. mirror = 0:
+// weight is (27, cin, cout) and offset k multiplies weight[k]. mirror = 1 (the
+// backward's d_feats): weight is the forward's (27, cout, cin) and offset k
+// multiplies weight[26 - k]^T.
 template <typename T, int NM>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 subm_conv_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ ranks,
                      const int* __restrict__ sel, const T* __restrict__ weight,
-                     T* __restrict__ out, int V, int cin, int cout) {
+                     T* __restrict__ out, int V, int cin, int cout,
+                     int mirror) {
   __shared__ int src_s[kTileV][27];
   __shared__ int any_s[27];
   __shared__ float a_s[kTileV][kChunk];
-  __shared__ float w_s[kChunk][kCoutMax];
+  // +1 column: the mirror mode writes along kk, which would otherwise hit one
+  // bank 32 times
+  __shared__ float w_s[kChunk][kCoutMax + 1];
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -109,7 +121,7 @@ subm_conv_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ ranks,
 
   for (int k = 0; k < 27; ++k) {
     if (!any_s[k]) continue;  // uniform across the CTA
-    const T* wk = weight + static_cast<size_t>(k) * cin * cout;
+    const T* wk = weight + static_cast<size_t>(mirror ? 26 - k : k) * cin * cout;
     for (int k0 = 0; k0 < cin; k0 += kChunk) {
       const int kc = min(kChunk, cin - k0);
       for (int i = tid; i < kTileV * kChunk; i += nthreads) {
@@ -121,10 +133,18 @@ subm_conv_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ ranks,
           val = to_f32(feats[static_cast<size_t>(row) * cin + k0 + kk]);
         a_s[lv][kk] = val;
       }
-      for (int i = tid; i < kc * cout; i += nthreads) {
-        const int kk = i / cout;
-        const int co = i % cout;
-        w_s[kk][co] = to_f32(wk[static_cast<size_t>(k0 + kk) * cout + co]);
+      if (mirror) {  // wk is (cout, cin): walk kk fastest for coalesced reads
+        for (int i = tid; i < kc * cout; i += nthreads) {
+          const int kk = i % kc;
+          const int co = i / kc;
+          w_s[kk][co] = to_f32(wk[static_cast<size_t>(co) * cin + k0 + kk]);
+        }
+      } else {
+        for (int i = tid; i < kc * cout; i += nthreads) {
+          const int kk = i / cout;
+          const int co = i % cout;
+          w_s[kk][co] = to_f32(wk[static_cast<size_t>(k0 + kk) * cout + co]);
+        }
       }
       __syncthreads();
       for (int kk = 0; kk < kc; ++kk) {
@@ -160,7 +180,7 @@ subm_conv_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ ranks,
 template <typename T>
 void launch(int nm, const void* feats, const void* ranks, const void* sel,
             const void* weight, void* out, int V, int cin, int cout,
-            cudaStream_t stream) {
+            int mirror, cudaStream_t stream) {
   const dim3 block(kThreadsX, kThreadsY);
   const dim3 grid((V + kTileV - 1) / kTileV);
   const T* f = static_cast<const T*>(feats);
@@ -169,30 +189,54 @@ void launch(int nm, const void* feats, const void* ranks, const void* sel,
   const T* w = static_cast<const T*>(weight);
   T* o = static_cast<T*>(out);
   switch (nm) {
-    case 1: subm_conv_fwd_kernel<T, 1><<<grid, block, 0, stream>>>(f, r, s, w, o, V, cin, cout); break;
-    case 2: subm_conv_fwd_kernel<T, 2><<<grid, block, 0, stream>>>(f, r, s, w, o, V, cin, cout); break;
-    case 3: subm_conv_fwd_kernel<T, 3><<<grid, block, 0, stream>>>(f, r, s, w, o, V, cin, cout); break;
-    default: subm_conv_fwd_kernel<T, 4><<<grid, block, 0, stream>>>(f, r, s, w, o, V, cin, cout); break;
+#define MOPA_CASE(N)                                                       \
+    case N:                                                                \
+      subm_conv_fwd_kernel<T, N><<<grid, block, 0, stream>>>(              \
+          f, r, s, w, o, V, cin, cout, mirror);                            \
+      break;
+    MOPA_CASE(1) MOPA_CASE(2) MOPA_CASE(3) MOPA_CASE(4) MOPA_CASE(5)
+    default: MOPA_CASE(6)
+#undef MOPA_CASE
   }
 }
 
-}  // namespace
-
-// feats (V, cin), weight (27, cin, cout) and out (V, cout) are float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1), contiguous; ranks and sel are
-// int32 (V*9). Launches on `stream` and returns cudaGetLastError().
-extern "C" int mopa_subm_conv_fwd(const void* feats, const void* ranks,
-                                  const void* sel, const void* weight,
-                                  void* out, int V, int cin, int cout,
-                                  int is_bf16, void* stream) {
+int run(const void* feats, const void* ranks, const void* sel,
+        const void* weight, void* out, int V, int cin, int cout, int is_bf16,
+        int mirror, void* stream) {
   if (V <= 0) return 0;
   if (cin < 1 || cout < 1 || cout > kCoutMax)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nm = (cout + kThreadsX - 1) / kThreadsX;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    launch<__nv_bfloat16>(nm, feats, ranks, sel, weight, out, V, cin, cout, st);
+    launch<__nv_bfloat16>(nm, feats, ranks, sel, weight, out, V, cin, cout,
+                          mirror, st);
   else
-    launch<float>(nm, feats, ranks, sel, weight, out, V, cin, cout, st);
+    launch<float>(nm, feats, ranks, sel, weight, out, V, cin, cout, mirror,
+                  st);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1. feats (V, cin), weight (27, cin, cout) and out (V, cout) are float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1), contiguous; ranks and sel are
+// int32 (V*9). Launches on `stream` and returns cudaGetLastError().
+extern "C" int mopa_subm_conv_fwd(const void* feats, const void* ranks,
+                                  const void* sel, const void* weight,
+                                  void* out, int V, int cin, int cout,
+                                  int is_bf16, void* stream) {
+  return run(feats, ranks, sel, weight, out, V, cin, cout, is_bf16, 0,
+             stream);
+}
+
+// K2, d_feats half: d_feats (V, cin) = the windowed conv of g (V, cout) with
+// W'[k] = weight[26 - k]^T, where weight is the FORWARD weight (27, cin,
+// cout). Types and layout as mopa_subm_conv_fwd.
+extern "C" int mopa_subm_conv_bwd_dfeats(const void* g, const void* ranks,
+                                         const void* sel, const void* weight,
+                                         void* d_feats, int V, int cin,
+                                         int cout, int is_bf16, void* stream) {
+  return run(g, ranks, sel, weight, d_feats, V, cout, cin, is_bf16, 1,
+             stream);
 }

@@ -1,12 +1,14 @@
-"""Seeded synthetic LiDAR + camera eval batches (port of the scan geometry of
-``mopa_tpu/data/synthetic.py::SyntheticSCN``).
+"""Seeded synthetic LiDAR + camera batches, eval and train (port of the scan
+geometry of ``mopa_tpu/data/synthetic.py::SyntheticSCN``).
 
 A scan is a ring-structured ground plane (fixed elevation angles hit the
 plane at fixed ranges, like a LiDAR) plus random upright boxes in the front
 frustum, projected by a KITTI-like pinhole camera; only points that land in
 the image are kept. Points are scaled to 5 cm voxel coordinates (scale 20),
 subsampled to the point budget with an evenly strided pick, and sorted by
-voxel key per scan, as the reference's collate does for train batches.
+voxel key per scan, as the reference's collate does for train batches. Train
+batches add the target-domain keys of the pre-EMA MoPA step: offline pseudo
+labels and SAM mask ids. No augmentation is applied.
 """
 
 from __future__ import annotations
@@ -65,10 +67,12 @@ def project(points: np.ndarray, image_size):
 
 def eval_sample(index: int, n_points: int = 24000, image_size=(480, 302),
                 scale: int = 20, full_scale: int = 4096,
-                num_classes: int = 10) -> dict:
+                num_classes: int = 10, stream: int = 0) -> dict:
     """One scan: uint8 image (H, W, 3), img_indices (N, 2), coords (N, 3),
-    seg_label (N,)."""
-    rng = np.random.default_rng(np.random.SeedSequence([SCAN_SEED, index]))
+    seg_label (N,). ``stream`` > 0 draws from another seed sequence (the
+    target domain of train batches)."""
+    rng = np.random.default_rng(np.random.SeedSequence(
+        [SCAN_SEED, index] + ([stream] if stream else [])))
     points, labels = synthetic_scan(rng, n_points, num_classes)
     img_points, keep = project(points, image_size)
     w, h = image_size
@@ -123,3 +127,43 @@ def eval_batch(batch_size: int, point_budget: int = 16384,
     """A collated batch of scans ``start_index .. start_index+batch_size-1``."""
     return collate_eval([eval_sample(start_index + i, **sample_kwargs)
                          for i in range(batch_size)], point_budget)
+
+
+def sam_mask(rng: np.random.Generator, image_size, mask_budget: int,
+             block: int = 24) -> np.ndarray:
+    """(H, W) int64 SAM-like mask ids in [-1, mask_budget): constant over
+    ``block`` x ``block`` pixel tiles (regions, not pixel noise), -1 where
+    no mask covers the tile."""
+    w, h = image_size
+    tiles = rng.integers(-1, mask_budget, ((h + block - 1) // block,
+                                           (w + block - 1) // block))
+    return np.repeat(np.repeat(tiles, block, 0), block, 1)[:h, :w].astype(
+        np.int64)
+
+
+def train_batch(batch_size: int, point_budget: int = 16384,
+                start_index: int = 0, image_size=(480, 302),
+                domain: str = "source", mask_budget: int = 64,
+                num_classes: int = 10) -> dict:
+    """A collated train batch of scans ``start_index ..`` of one domain, in
+    the wire format of :func:`collate_eval`. The target domain draws other
+    scans and adds ``pseudo_label_2d``/``pseudo_label_3d`` (B*P,) (the
+    labels with 30 % dropped to -100, as offline pseudo labels leave points
+    out) and ``sam_mask`` (B, H, W) ids in [-1, ``mask_budget``)."""
+    if domain not in ("source", "target"):
+        raise ValueError("domain must be 'source' or 'target'")
+    target = domain == "target"
+    out = collate_eval(
+        [eval_sample(start_index + i, image_size=image_size,
+                     num_classes=num_classes, stream=int(target))
+         for i in range(batch_size)], point_budget)
+    if target:
+        rng = np.random.default_rng(np.random.SeedSequence(
+            [SCAN_SEED, start_index, batch_size, 2]))
+        ps = out["seg_label"].copy()
+        ps[rng.random(ps.shape[0]) < 0.3] = -100
+        out["pseudo_label_2d"] = ps
+        out["pseudo_label_3d"] = ps.copy()
+        out["sam_mask"] = np.stack([sam_mask(rng, image_size, mask_budget)
+                                    for _ in range(batch_size)])
+    return out

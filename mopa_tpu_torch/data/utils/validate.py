@@ -27,12 +27,12 @@ def make_eval_step(cfg, models: trainer_mod.Models):
     ``record_function`` range named in :data:`STAGES`.
     """
     device = next(models.model_2d.parameters()).device
-    models.model_2d.eval()
-    models.model_3d.eval()
 
     @torch.no_grad()
     def eval_step(batch: dict):
         decode, net2d, plan_range, net3d, heads = STAGES
+        models.model_2d.eval()  # a train step may share the models
+        models.model_3d.eval()
         with record_function(decode):
             batch = decode_batch(batch, device)
             valid = batch["point_valid"].reshape(-1)

@@ -12,10 +12,15 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def build_model_2d(cfg, generator=None) -> Net2DSeg:
+    """The dense ``seg_logit_all`` head is on exactly when the SAM
+    consistency loss reads it (``TRAIN.PC_MM.lambda_sam_cons`` > 0), as in
+    the reference's ``build_model_2d``."""
+    output_all = float(cfg.TRAIN.PC_MM.lambda_sam_cons) > 0
     return Net2DSeg(num_classes=cfg.MODEL_2D.NUM_CLASSES,
                     dual_head=cfg.MODEL_2D.DUAL_HEAD,
                     backbone_2d=cfg.MODEL_2D.TYPE,
-                    compute_dtype=compute_dtype(cfg), generator=generator)
+                    compute_dtype=compute_dtype(cfg), generator=generator,
+                    output_all=output_all)
 
 
 def build_model_3d(cfg, generator=None) -> Net3DSeg:

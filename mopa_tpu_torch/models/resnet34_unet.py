@@ -1,12 +1,14 @@
 """UNet on a ResNet34 encoder (PyTorch port of
-``mopa_tpu/models/resnet34_unet.py``), eval forward.
+``mopa_tpu/models/resnet34_unet.py``), eval and training forward.
 
 Reference backbone ``mopa/models/resnet34_unet.py:83-191``: torchvision-style
 ResNet34 encoder with conv1 stride 1, maxpool + 4 stages, decoder of
 ConvTranspose(k2, s2)+BN+ReLU stages with skip concatenation and 3x3 conv
 fusions, final 3x3 conv to 64 channels; the input is padded to a multiple of
-16 and cropped back. Dropout (p=0.4 after layer3 and layer4) is the identity
-in eval. The public layout is NHWC like the reference; convolutions run
+16 and cropped back. Dropout (p=0.4 after layer3 and layer4) acts in training
+only, drawing its mask from the caller's generator. ``n_domains`` > 1 fuses
+that many forwards stacked on the batch axis, with per-domain batch-norm
+statistics. The public layout is NHWC like the reference; convolutions run
 NCHW through cuDNN. Parameters stay float32 and are cast to the compute dtype
 at each conv, as flax's ``dtype=`` does; batch norm computes in float32.
 Module and parameter names follow the reference's flax names
@@ -57,25 +59,56 @@ def init_weights(module: nn.Module, generator: torch.Generator | None) -> None:
 
 
 class DomainBatchNorm(nn.Module):
-    """Batch norm over NCHW with running statistics (eval only): eps 1e-5,
-    computed in float32, returned in the input dtype."""
+    """Batch norm over NCHW (eps 1e-5, momentum 0.9), computed in float32 and
+    returned in the input dtype.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Eval: running statistics. Training: the batch splits into ``n_domains``
+    equal leading groups, each normalised with its own statistics (biased
+    variance, unlike ``nn.BatchNorm2d``'s running update); the running
+    buffers take the per-domain updates in domain order, in place."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode batch norm is not ported yet; call .eval()")
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
-        out = (x.float() - self.mean[:, None, None]) * inv[:, None, None] \
+    def forward(self, x: torch.Tensor, n_domains: int = 1) -> torch.Tensor:
+        # no float32 copy of x outlives its first use: at full resolution
+        # each one is a whole (B, C, H, W) map
+        if not self.training:
+            inv = torch.rsqrt(self.var + self.eps) * self.scale
+            out = (x.float() - self.mean[:, None, None]) * inv[:, None, None] \
+                + self.bias[:, None, None]
+            return out.to(x.dtype)
+        d = int(n_domains)
+        g = x.float().reshape((d, x.shape[0] // d) + tuple(x.shape[1:]))
+        mean = g.mean(dim=(1, 3, 4), keepdim=True)               # (D,1,C,1,1)
+        var = (g - mean).square().mean(dim=(1, 3, 4), keepdim=True)
+        with torch.no_grad():
+            for i in range(d):
+                self.mean.mul_(self.momentum).add_(
+                    (1 - self.momentum) * mean[i].reshape(-1))
+                self.var.mul_(self.momentum).add_(
+                    (1 - self.momentum) * var[i].reshape(-1))
+        out = (g - mean) * (torch.rsqrt(var + self.eps)
+                            * self.scale[:, None, None]) \
             + self.bias[:, None, None]
-        return out.to(x.dtype)
+        return out.reshape(x.shape).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None
+            ) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - p and scale by
+    1 / (1 - p), in the input dtype; the mask comes from ``generator``."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 class BasicBlock(nn.Module):
@@ -94,12 +127,12 @@ class BasicBlock(nn.Module):
             self.downsample_bn = DomainBatchNorm(planes)
         self.downsample = downsample
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x: torch.Tensor, nd: int) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x), nd))
+        y = self.bn2(self.conv2(y), nd)
         residual = x
         if self.downsample:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = self.downsample_bn(self.downsample_conv(x), nd)
         return torch.relu(y + residual)
 
 
@@ -114,9 +147,9 @@ class ResLayer(nn.Module):
             self.add_module(f"block{i}", BasicBlock(
                 inplanes if i == 0 else planes, planes, s, down))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nd: int) -> torch.Tensor:
         for i in range(self.blocks):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, nd)
         return x
 
 
@@ -128,8 +161,8 @@ class DecStage(nn.Module):
         self.conv = Conv2d(in_channels, out_channels, 3, 1, 1)
         self.bn = DomainBatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.conv(x)))
+    def forward(self, x: torch.Tensor, nd: int) -> torch.Tensor:
+        return torch.relu(self.bn(self.conv(x), nd))
 
 
 class TConvStage(nn.Module):
@@ -140,17 +173,19 @@ class TConvStage(nn.Module):
         self.tconv = ConvTranspose2d(in_channels, out_channels, 2, 2)
         self.bn = DomainBatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.tconv(x)))
+    def forward(self, x: torch.Tensor, nd: int) -> torch.Tensor:
+        return torch.relu(self.bn(self.tconv(x), nd))
 
 
 class UNetResNet34(nn.Module):
     """Full-resolution 64-channel feature UNet; (B, H, W, 3) -> (B, H, W, 64)."""
 
     def __init__(self, compute_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout_rate: float = 0.4):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
         self.conv1 = Conv2d(3, 64, 7, 1, 3, bias=False)  # stride 1 (ref :93)
         self.bn1 = DomainBatchNorm(64)
         self.layer1 = ResLayer(64, 64, 3, 1)
@@ -167,27 +202,32 @@ class UNetResNet34(nn.Module):
         self.dec_conv_stage1 = Conv2d(128, 64, 3, 1, 1)
         init_weights(self, generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, n_domains: int = 1,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, H, W, 3) -> (B, H, W, 64) in the compute dtype. In training,
+        ``generator`` draws the dropout masks."""
+        nd = n_domains
+        p = self.dropout_rate if self.training else 0.0
         h, w = img.shape[1], img.shape[2]
         pad_h, pad_w = (-h) % 16, (-w) % 16
         x = F.pad(img, (0, 0, 0, pad_w, 0, pad_h))
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn1(self.conv1(x), nd))
         inter = [x]
         x = F.max_pool2d(x, 3, 2, 1)
-        x = self.layer1(x)
+        x = self.layer1(x, nd)
         inter.append(x)
-        x = self.layer2(x)
+        x = self.layer2(x, nd)
         inter.append(x)
-        x = self.layer3(x)
+        x = dropout(self.layer3(x, nd), p, generator)
         inter.append(x)
-        x = self.layer4(x)
-        x = self.dec_t_conv_stage5(x)
-        x = self.dec_conv_stage4(torch.cat([inter[3], x], dim=1))
-        x = self.dec_t_conv_stage4(x)
-        x = self.dec_conv_stage3(torch.cat([inter[2], x], dim=1))
-        x = self.dec_t_conv_stage3(x)
-        x = self.dec_conv_stage2(torch.cat([inter[1], x], dim=1))
-        x = self.dec_t_conv_stage2(x)
+        x = dropout(self.layer4(x, nd), p, generator)
+        x = self.dec_t_conv_stage5(x, nd)
+        x = self.dec_conv_stage4(torch.cat([inter[3], x], dim=1), nd)
+        x = self.dec_t_conv_stage4(x, nd)
+        x = self.dec_conv_stage3(torch.cat([inter[2], x], dim=1), nd)
+        x = self.dec_t_conv_stage3(x, nd)
+        x = self.dec_conv_stage2(torch.cat([inter[1], x], dim=1), nd)
+        x = self.dec_t_conv_stage2(x, nd)
         x = self.dec_conv_stage1(torch.cat([inter[0], x], dim=1))
         return x[:, :, :h, :w].permute(0, 2, 3, 1)

@@ -1,5 +1,5 @@
 """3D submanifold sparse-conv UNet (PyTorch port of
-``mopa_tpu/models/scn_unet.py``), eval forward.
+``mopa_tpu/models/scn_unet.py``), eval and training forward.
 
 ``scn.InputLayer(3, full_scale, mode=4)`` -> ``SubmanifoldConvolution(1, m, 3)``
 -> ``scn.UNet(3, block_reps=1, planes=[m, 2m, ..., 7m])`` -> ``BatchNormReLU(m)``
@@ -18,6 +18,9 @@ The voxel tables and maps of a batch are built once into a :class:`UNetPlan`
 (a pure function of the coordinates); the module then runs gather-GEMM
 compute only. The plan is the reference's flat layout: level-l capacity
 S * cap_l, slots sample-major, every integer equal to the reference's.
+Several forwards fuse into one (the train step's [source; target] scans):
+each level then carries the batch-norm domain of every slot (``dom``) and the
+batch norms of a training forward take statistics per domain.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ class LevelPlan(NamedTuple):
     up_off: torch.Tensor | None    # (V_{l-1},) deconv kernel-offset index
     ranks: torch.Tensor            # (V_l * 9,) int32 wide-column plan
     sel: torch.Tensor              # (V_l * 9,) int32 packed dz codes
+    dom: torch.Tensor | None = None  # (V_l,) BN-domain id (fused forwards)
 
 
 class UNetPlan(NamedTuple):
@@ -68,13 +72,16 @@ def capacity_schedule(n_points: int, num_levels: int,
 
 def build_unet_plan_batched(coords: torch.Tensor, valid: torch.Tensor,
                             num_levels: int,
-                            capacities: Sequence[int] | None = None
+                            capacities: Sequence[int] | None = None,
+                            sample_domains: Sequence[int] | None = None
                             ) -> UNetPlan:
     """Per-sample plans for S scans, stitched into one flat plan.
 
     Args:
         coords: (S, P, 3) integer per-sample coordinates in [0, 4096).
         valid: (S, P) bool.
+        sample_domains: optional (S,) BN-domain id per sample; each level's
+            ``dom`` then repeats it over the sample's slots.
 
     Points need not be sorted: level 0 sorts them (the reference's eval path
     skips that sort on the promise of sorted input and then mis-merges
@@ -97,6 +104,9 @@ def build_unet_plan_batched(coords: torch.Tensor, valid: torch.Tensor,
         out = torch.where(arr >= 0, arr + off, torch.full_like(arr, -1))
         return out.reshape((s * arr.shape[1],) + tuple(arr.shape[2:]))
 
+    doms = None
+    if sample_domains is not None:
+        doms = torch.as_tensor(sample_domains, dtype=torch.int64, device=dev)
     levels = []
     nums = []
     prev = table
@@ -115,7 +125,8 @@ def build_unet_plan_batched(coords: torch.Tensor, valid: torch.Tensor,
             valid=prev.valid_mask().reshape(-1), down_nbr=down_nbr, f2c=f2c,
             up_off=up_off,
             ranks=offset_flat(ranks, cap).to(torch.int32).reshape(-1),
-            sel=sel.to(torch.int32).reshape(-1)))
+            sel=sel.to(torch.int32).reshape(-1),
+            dom=None if doms is None else doms.repeat_interleave(cap)))
         if l + 1 < num_levels:
             coarse, f2c_b = voxel_ops.downsample_coords(prev,
                                                         capacities[l + 1])
@@ -140,8 +151,10 @@ def apply_submanifold(x: torch.Tensor, lv: LevelPlan,
 
 
 class _BN(nn.Module):
-    """BatchNorm(+ReLU) over voxels with running statistics (eval only;
-    eps 1e-4). Names follow the reference: scale, bias, mean, var."""
+    """Masked BatchNorm(+ReLU) over active voxels (eps 1e-4, momentum 0.9):
+    running statistics in eval mode, batch statistics (per domain when the
+    plan carries domains) in training mode, which also updates the running
+    buffers. Names follow the reference: scale, bias, mean, var."""
 
     def __init__(self, features: int, leakiness: float = 0.0,
                  act: bool = True, eps: float = 1e-4):
@@ -154,22 +167,22 @@ class _BN(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode batch norm is not ported yet; call .eval()")
+    def forward(self, x: torch.Tensor, lv: LevelPlan,
+                n_domains: int = 1) -> torch.Tensor:
         return sc.batch_norm_act(x, self.scale, self.bias, self.mean,
-                                 self.var, eps=self.eps,
+                                 self.var, training=self.training,
+                                 valid=lv.valid, dom=lv.dom,
+                                 n_domains=n_domains, eps=self.eps,
                                  leakiness=self.leakiness, act=self.act)
 
 
-def _conv_weight(shape, generator, dtype) -> nn.Parameter:
-    """SCN-style init: normal with std sqrt(2 / (kernel_volume * fan_in)),
-    held in the compute dtype so that no conv casts its weight per call."""
+def _conv_weight(shape, generator) -> nn.Parameter:
+    """SCN-style init: normal with std sqrt(2 / (kernel_volume * fan_in)).
+    Held in float32 like every parameter of the reference; the convs cast to
+    the compute dtype at use."""
     k, cin, _ = shape
     std = (2.0 / (k * cin)) ** 0.5
-    return nn.Parameter((torch.randn(shape, generator=generator) * std)
-                        .to(dtype))
+    return nn.Parameter(torch.randn(shape, generator=generator) * std)
 
 
 class SparseUNet(nn.Module):
@@ -193,49 +206,53 @@ class SparseUNet(nn.Module):
                 "shipped configs use VGG-style blocks with block_reps=1")
         self.compute_dtype = compute_dtype
         self.planes = [(i + 1) * m for i in range(num_planes)]
-        dt = compute_dtype
-        self.stem = _conv_weight((27, in_channels, m), generator, dt)
+        self.stem = _conv_weight((27, in_channels, m), generator)
         for l, p in enumerate(self.planes):
             self.add_module(f"l{l}_bn1", _BN(p))
             self.register_parameter(f"l{l}_conv1",
-                                    _conv_weight((27, p, p), generator, dt))
+                                    _conv_weight((27, p, p), generator))
             if l + 1 < num_planes:
                 q = self.planes[l + 1]
                 self.add_module(f"l{l}_bn_down", _BN(p))
                 self.register_parameter(f"l{l}_down",
-                                        _conv_weight((8, p, q), generator, dt))
+                                        _conv_weight((8, p, q), generator))
                 self.add_module(f"l{l}_bn_up", _BN(q))
                 self.register_parameter(f"l{l}_up",
-                                        _conv_weight((8, q, p), generator, dt))
+                                        _conv_weight((8, q, p), generator))
                 self.add_module(f"l{l}_bn2", _BN(2 * p))
                 self.register_parameter(f"l{l}_conv2",
                                         _conv_weight((27, 2 * p, p),
-                                                     generator, dt))
+                                                     generator))
         self.final_bn = _BN(m)
 
-    def forward(self, point_feats: torch.Tensor,
-                plan: UNetPlan) -> torch.Tensor:
+    def forward(self, point_feats: torch.Tensor, plan: UNetPlan,
+                n_domains: int = 1) -> torch.Tensor:
+        """(N, in_channels) point features -> (N, m) in the compute dtype.
+        ``n_domains`` > 1 fuses that many forwards whose slots the plan's
+        ``dom`` assigns (training-mode batch norm per domain)."""
         x = voxel_ops.pool_features_sorted(
             point_feats.to(self.compute_dtype), plan.point_counts,
             plan.point_end, plan.point_perm)
         x = apply_submanifold(x, plan.levels[0], self.stem)
-        x = self._level(0, x, plan)
-        x = self.final_bn(x)
+        x = self._level(0, x, plan, n_domains)
+        x = self.final_bn(x, plan.levels[0], n_domains)
         return voxel_ops.unpool_features(x, plan.point_inverse)
 
-    def _level(self, l: int, x: torch.Tensor, plan: UNetPlan) -> torch.Tensor:
+    def _level(self, l: int, x: torch.Tensor, plan: UNetPlan,
+               n_domains: int) -> torch.Tensor:
         lv = plan.levels[l]
-        x = getattr(self, f"l{l}_bn1")(x)
+        x = getattr(self, f"l{l}_bn1")(x, lv, n_domains)
         x = apply_submanifold(x, lv, getattr(self, f"l{l}_conv1"))
         if l + 1 < len(self.planes):
             nxt = plan.levels[l + 1]
             skip = x
-            y = getattr(self, f"l{l}_bn_down")(x)
+            y = getattr(self, f"l{l}_bn_down")(x, lv, n_domains)
             y = sc.strided_conv(y, nxt.down_nbr, getattr(self, f"l{l}_down"))
-            y = self._level(l + 1, y, plan)
-            y = getattr(self, f"l{l}_bn_up")(y)
+            y = self._level(l + 1, y, plan, n_domains)
+            y = getattr(self, f"l{l}_bn_up")(y, nxt, n_domains)
             y = sc.deconv(y, nxt.f2c, nxt.up_off, getattr(self, f"l{l}_up"),
                           lv.valid)
-            x = getattr(self, f"l{l}_bn2")(torch.cat([skip, y], dim=-1))
+            x = getattr(self, f"l{l}_bn2")(torch.cat([skip, y], dim=-1), lv,
+                                           n_domains)
             x = apply_submanifold(x, lv, getattr(self, f"l{l}_conv2"))
         return x

@@ -1,5 +1,5 @@
-"""Weight bridge: flattened flax variables -> the port's modules (the inverse
-direction of ``mopa_tpu/models/torch_compat.py``).
+"""Weight bridge between flattened flax variables and the port's modules, both
+ways (the layout of ``mopa_tpu/models/torch_compat.py::flatten_pytree``).
 
 Input is the layout ``torch_compat.flatten_pytree`` gives: ``{"a.b.c":
 numpy array}`` for the params and the batch stats of each net. The port's
@@ -13,6 +13,9 @@ modules carry the flax names, so the only renaming is ``.kernel`` ->
 * SCN conv ``(K, Cin, Cout)`` and batch-norm ``scale/bias/mean/var`` unchanged.
 
 A missing or extra name, or a shape that does not fit, raises.
+:func:`to_flax` maps port tensors (parameters, their gradients or updates,
+buffers) back to flax names and layouts, so a port state exports as the
+reference's flattened variables and tests compare the two by name.
 """
 
 from __future__ import annotations
@@ -30,6 +33,38 @@ def _convert(owner: nn.Module, arr: np.ndarray) -> np.ndarray:
     if isinstance(owner, nn.Linear):
         return np.transpose(arr, (1, 0))
     raise TypeError("no kernel layout rule for {}".format(type(owner)))
+
+
+def _to_flax_layout(owner: nn.Module, arr: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`_convert`."""
+    if isinstance(owner, nn.ConvTranspose2d):
+        return np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
+    if isinstance(owner, nn.Conv2d):
+        return np.transpose(arr, (2, 3, 1, 0))
+    if isinstance(owner, nn.Linear):
+        return np.transpose(arr, (1, 0))
+    raise TypeError("no kernel layout rule for {}".format(type(owner)))
+
+
+def to_flax(module: nn.Module, tensors: dict) -> dict:
+    """{port name: tensor} of ``module``'s parameters or buffers (or any
+    tensors shaped like them, e.g. gradients) -> {flax name: float32 numpy
+    array in the flax layout}. ``.weight`` of a conv or linear layer becomes
+    ``.kernel``; other names are unchanged. The arrays are copies, never
+    views of the tensors."""
+    owners = dict(module.named_modules())
+    out = {}
+    for name, value in tensors.items():
+        arr = np.array(value.detach().float().cpu())
+        owner_name, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        owner = owners[owner_name]
+        if leaf == "weight" and isinstance(
+                owner, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            out[owner_name + ".kernel"] = np.ascontiguousarray(
+                _to_flax_layout(owner, arr))
+        else:
+            out[name] = arr
+    return out
 
 
 def load_flax_state(module: nn.Module, flat_params: dict,

@@ -1,12 +1,15 @@
 """xMUDA dual-network architecture (PyTorch port of
-``mopa_tpu/models/xmuda_arch.py``), eval forward.
+``mopa_tpu/models/xmuda_arch.py``), eval and training forward.
 
 * :class:`Net2DSeg`: UNetResNet34 features, 2D -> 3D lifting over a padded
-  (B, P, 2) pixel-index tensor, linear seg head(s) in float32. The dense
-  ``seg_logit_all`` map (read only by the SAM training loss) is not ported
-  yet.
+  (B, P, 2) pixel-index tensor, linear seg head(s) in float32; with
+  ``output_all`` also the dense ``seg_logit_all`` map (the shared ``linear``
+  head on the float32 feature map, read by the SAM consistency loss).
 * :class:`Net3DSeg`: the SCN SparseUNet over a precomputed ``UNetPlan``,
   linear seg head(s) in float32 on the 16-channel point features.
+
+``n_domains`` > 1 fuses that many forwards (stacked images; a plan whose
+levels carry domains) with per-domain batch-norm statistics in training.
 
 Per-point tensors are padded to a per-sample budget P; ``point_valid`` (B, P)
 masks padding.
@@ -26,11 +29,13 @@ class Net2DSeg(nn.Module):
     def __init__(self, num_classes: int, dual_head: bool,
                  backbone_2d: str = "UNetResNet34",
                  compute_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 output_all: bool = False):
         super().__init__()
         if backbone_2d != "UNetResNet34":
             raise NotImplementedError(
                 "2D backbone {} not supported".format(backbone_2d))
+        self.output_all = output_all
         self.net_2d = UNetResNet34(compute_dtype, generator)
         self.linear = nn.Linear(64, num_classes)
         self.linear2 = nn.Linear(64, num_classes) if dual_head else None
@@ -39,16 +44,21 @@ class Net2DSeg(nn.Module):
             init_weights(self.linear2, generator)
 
     def forward(self, img: torch.Tensor, img_indices: torch.Tensor,
-                point_valid: torch.Tensor) -> dict:
+                point_valid: torch.Tensor, n_domains: int = 1,
+                generator: torch.Generator | None = None) -> dict:
         """img (B, H, W, 3); img_indices (B, P, 2); point_valid (B, P).
 
-        Returns 'feats' (B*P, 64), 'seg_logit' (B*P, C) and, with the dual
-        head, 'seg_logit2'."""
-        x = self.net_2d(img)
+        Returns 'feats' (B*P, 64), 'seg_logit' (B*P, C), with the dual head
+        'seg_logit2', and with ``output_all`` 'seg_logit_all' (B, H, W, C).
+        ``generator`` draws the training-mode dropout masks."""
+        x = self.net_2d(img, n_domains, generator)
         b, p = img_indices.shape[:2]
+        preds = {}
+        if self.output_all:
+            preds["seg_logit_all"] = self.linear(x.float())
         feats = lift_image_feats(x, img_indices, point_valid)
         feats = feats.float().reshape(b * p, -1)
-        preds = {"feats": feats, "seg_logit": self.linear(feats)}
+        preds.update(feats=feats, seg_logit=self.linear(feats))
         if self.linear2 is not None:
             preds["seg_logit2"] = self.linear2(feats)
         return preds
@@ -74,10 +84,11 @@ class Net3DSeg(nn.Module):
         if dual_head:
             init_weights(self.linear2, generator)
 
-    def forward(self, point_feats: torch.Tensor, plan: UNetPlan) -> dict:
+    def forward(self, point_feats: torch.Tensor, plan: UNetPlan,
+                n_domains: int = 1) -> dict:
         """point_feats (B*P, in_channels) -> 'feats', 'seg_logit'
         [, 'seg_logit2']."""
-        feats = self.net_3d(point_feats, plan).float()
+        feats = self.net_3d(point_feats, plan, n_domains).float()
         preds = {"feats": feats, "seg_logit": self.linear(feats)}
         if self.linear2 is not None:
             preds["seg_logit2"] = self.linear2(feats)

@@ -1,5 +1,6 @@
-"""2D -> 3D feature lifting (PyTorch port of ``mopa_tpu/ops/lifting.py``,
-forward): one batched gather of per-point pixel features."""
+"""2D -> 3D feature lifting (PyTorch port of ``mopa_tpu/ops/lifting.py``):
+one batched gather of per-point pixel features; its gradient is autograd's
+accumulation into the (B, H, W, C) map."""
 
 import torch
 
@@ -16,9 +17,14 @@ def lift_image_feats(feat_map: torch.Tensor, img_indices: torch.Tensor,
 
     Returns (B, P, C); padding points receive zeros.
     """
-    b, h, w, _ = feat_map.shape
+    b, h, w, c = feat_map.shape
+    p = img_indices.shape[1]
     rows = img_indices[..., 0].long().clamp(0, h - 1)
     cols = img_indices[..., 1].long().clamp(0, w - 1)
+    # padding points read distinct pixels (masked below), not all (0, 0):
+    # the gather's backward then meets no long run of one index
+    pos = torch.arange(p, device=feat_map.device)[None, :] % (h * w)
+    flat = torch.where(valid, rows * w + cols, pos)
     bidx = torch.arange(b, device=feat_map.device)[:, None]
-    out = feat_map[bidx, rows, cols]
+    out = feat_map.reshape(b, h * w, c)[bidx, flat]
     return torch.where(valid[..., None], out, torch.zeros_like(out))

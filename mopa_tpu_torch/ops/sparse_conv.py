@@ -1,13 +1,18 @@
-"""Sparse convolution plans and eval-forward compute (PyTorch port of
+"""Sparse convolution plans and compute, forward and backward (PyTorch port of
 ``mopa_tpu/ops/sparse_conv.py``).
 
 * ``SubmanifoldConvolution(3, a, b, 3, False)`` -> :func:`submanifold_conv_wide`
-  over a :class:`WidePlan`: on a CUDA tensor the hand-written kernel of
-  ``ops.sparse_conv_cuda``, on a CPU tensor the plain twin
-  :func:`submanifold_conv_wide_ref`.
+  over a :class:`WidePlan`, an autograd Function: on CUDA tensors its forward
+  is the hand-written K1 kernel and its backward the K2 kernels of
+  ``ops.sparse_conv_cuda``; on CPU tensors the plain twins
+  :func:`submanifold_conv_wide_ref` and :func:`submanifold_conv_wide_bwd_ref`.
 * ``Convolution(3, a, b, 2, 2, False)`` -> :func:`strided_conv`.
 * ``Deconvolution(3, a, b, 2, 2, False)`` -> :func:`deconv`.
-* ``BatchNormReLU`` with running statistics -> :func:`batch_norm_act`.
+  Both differentiate by autograd through their gather + matmul: the gradients
+  are the reference's scatter-free custom VJPs, and nothing large is
+  materialised beyond what the forward already holds.
+* ``BatchNormLeakyReLU`` -> :func:`batch_norm_act`, with running statistics
+  (eval) or masked, optionally per-domain batch statistics (training).
 
 Weight layout: ``(K, Cin, Cout)``; kernel offsets enumerate (dx, dy, dz) with
 dx slowest and dz fastest, as in the reference and in SparseConvNet.
@@ -114,27 +119,23 @@ def up_offset_index(coords: torch.Tensor) -> torch.Tensor:
 
 def _masked_take(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows of feats at idx; idx < 0 yields zeros."""
-    out = feats[idx.clamp(0, feats.shape[0] - 1)]
+    out = feats[voxel_ops.spread_misses(idx, feats.shape[0])]
     return torch.where((idx >= 0)[:, None], out, torch.zeros_like(out))
 
 
-def submanifold_conv_wide_ref(feats: torch.Tensor, ranks: torch.Tensor,
-                              sel: torch.Tensor,
-                              weight: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of the K1 kernel: gather, dz-align, one GEMM.
-
-    feats (V, Cin); ranks/sel (V*9,) over the flat global plan; weight
-    (27, Cin, Cout). Window rows past the table read zero (the all-miss
-    sentinel of the last sample is V); rows whose dz code is 3 contribute
-    nothing. The centre column is gathered like the other 8: its rank is
-    ``v - e0``, the same rows the reference reads by shifts.
-    """
-    v, cin = feats.shape
-    k, _, cout = weight.shape
-    fp = torch.cat([feats, feats.new_zeros(2, cin)])
+def _wide_align(x: torch.Tensor, ranks: torch.Tensor,
+                sel: torch.Tensor) -> torch.Tensor:
+    """(V, C) rows -> (V, 27*C) dz-aligned windows: block k = 3*c + t of row
+    v holds the row at kernel offset k (zero where absent). Window rows past
+    the table read zero (the all-miss sentinel of the last sample is V); rows
+    whose dz code is 3 contribute nothing. The centre column is gathered like
+    the other 8: its rank is ``v - e0``, the rows the reference reads by
+    shifts."""
+    v, c = x.shape
+    fp = torch.cat([x, x.new_zeros(2, c)])
     base = ranks.reshape(v, 9).long().clamp(0, v - 1)
     codes = sel.reshape(v, 9)
-    g = [fp[base + j] for j in range(3)]                   # (V, 9, Cin) each
+    g = [fp[base + j] for j in range(3)]                   # (V, 9, C) each
     t = [(codes >> (2 * j)) & 3 for j in range(3)]
     zero = torch.zeros_like(g[0])
     slots = []
@@ -143,22 +144,114 @@ def submanifold_conv_wide_ref(feats: torch.Tensor, ranks: torch.Tensor,
         for j in range(slot + 1):
             acc = acc + torch.where((t[j] == slot)[..., None], g[j], zero)
         slots.append(acc)
-    aligned = torch.stack(slots, dim=2).reshape(v, 27 * cin)
-    return aligned @ weight.reshape(k * cin, cout).to(feats.dtype)
+    return torch.stack(slots, dim=2).reshape(v, 27 * c)
+
+
+def submanifold_conv_wide_ref(feats: torch.Tensor, ranks: torch.Tensor,
+                              sel: torch.Tensor,
+                              weight: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the K1 kernel: gather, dz-align, one GEMM.
+
+    feats (V, Cin); ranks/sel (V*9,) over the flat global plan; weight
+    (27, Cin, Cout), used in the feature dtype."""
+    k, cin, cout = weight.shape
+    return _wide_align(feats, ranks, sel) @ weight.reshape(k * cin, cout).to(
+        feats.dtype)
+
+
+def submanifold_conv_wide_dfeats_ref(g: torch.Tensor, ranks: torch.Tensor,
+                                     sel: torch.Tensor,
+                                     weight: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K2's ``d_feats``: the same windowed conv of the
+    cotangent g (V, Cout) with the mirrored, transposed forward weight
+    ``weight[::-1].transpose(1, 2)`` (u is v's neighbour at offset o iff v is
+    u's at -o, and the offsets enumerate symmetrically)."""
+    return submanifold_conv_wide_ref(g, ranks, sel,
+                                     weight.flip(0).transpose(1, 2))
+
+
+def submanifold_conv_wide_dw_ref(g: torch.Tensor, feats: torch.Tensor,
+                                 ranks: torch.Tensor,
+                                 sel: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K2's ``d_w`` (27, Cin, Cout) float32, in the reference's
+    mirror form: ``d_w[k] = feats^T @ aligned_g[:, block 26-k]``, products
+    summed in float32."""
+    v, cin = feats.shape
+    cout = g.shape[1]
+    p = feats.float().T @ _wide_align(g, ranks, sel).float()  # (Cin, 27*Cout)
+    return p.reshape(cin, 27, cout).flip(1).permute(1, 0, 2).contiguous()
+
+
+def submanifold_conv_wide_bwd_ref(g: torch.Tensor, feats: torch.Tensor,
+                                  ranks: torch.Tensor, sel: torch.Tensor,
+                                  weight: torch.Tensor):
+    """Plain twin of K2, the monolithic ``_wide_bwd`` maths: (d_feats in the
+    feature dtype, d_w float32) for a cotangent g already in the feature
+    dtype."""
+    return (submanifold_conv_wide_dfeats_ref(g, ranks, sel, weight),
+            submanifold_conv_wide_dw_ref(g, feats, ranks, sel))
+
+
+def _conv_fwd(feats, ranks, sel, weight):
+    if feats.is_cuda:
+        from mopa_tpu_torch.ops import sparse_conv_cuda
+
+        return sparse_conv_cuda.submanifold_conv_wide_cuda(feats, ranks, sel,
+                                                           weight)
+    return submanifold_conv_wide_ref(feats, ranks, sel, weight)
+
+
+def _conv_bwd_dfeats(g, ranks, sel, weight):
+    if g.is_cuda:
+        from mopa_tpu_torch.ops import sparse_conv_cuda
+
+        return sparse_conv_cuda.submanifold_conv_wide_bwd_dfeats_cuda(
+            g, ranks, sel, weight)
+    return submanifold_conv_wide_dfeats_ref(g, ranks, sel, weight)
+
+
+def _conv_bwd_dw(g, feats, ranks, sel):
+    if g.is_cuda:
+        from mopa_tpu_torch.ops import sparse_conv_cuda
+
+        return sparse_conv_cuda.submanifold_conv_wide_bwd_dw_cuda(
+            g, feats, ranks, sel)
+    return submanifold_conv_wide_dw_ref(g, feats, ranks, sel)
+
+
+class _SubmanifoldConvWide(torch.autograd.Function):
+    """The reference's ``_submanifold_conv_wide`` custom VJP. The weight
+    parameter stays float32 and is cast to the feature dtype here, at use,
+    so ``d_w`` leaves in float32 as JAX returns it."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, ranks, sel):
+        feats = feats.contiguous()
+        w = weight.to(feats.dtype).contiguous()
+        ctx.save_for_backward(feats, w, ranks, sel)
+        ctx.weight_dtype = weight.dtype
+        return _conv_fwd(feats, ranks, sel, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, w, ranks, sel = ctx.saved_tensors
+        g = g.to(feats.dtype).contiguous()
+        d_feats = d_w = None
+        if ctx.needs_input_grad[0]:  # not for the stem's all-ones input
+            d_feats = _conv_bwd_dfeats(g, ranks, sel, w)
+        if ctx.needs_input_grad[1]:
+            d_w = _conv_bwd_dw(g, feats, ranks, sel).to(ctx.weight_dtype)
+        return d_feats, d_w, None, None
 
 
 def submanifold_conv_wide(feats: torch.Tensor, plan: WidePlan,
                           weight: torch.Tensor) -> torch.Tensor:
-    """Submanifold 3x3x3 conv over a flat :class:`WidePlan`.
+    """Submanifold 3x3x3 conv over a flat :class:`WidePlan`, differentiable.
 
-    A CUDA tensor always runs the hand-written K1 kernel (a build or launch
-    failure raises); a CPU tensor runs the plain twin."""
-    if feats.is_cuda:
-        from mopa_tpu_torch.ops import sparse_conv_cuda
-
-        return sparse_conv_cuda.submanifold_conv_wide_cuda(
-            feats, plan.ranks, plan.sel, weight)
-    return submanifold_conv_wide_ref(feats, plan.ranks, plan.sel, weight)
+    CUDA tensors always run the hand-written kernels (K1 forward, K2
+    backward; a build or launch failure raises); CPU tensors run the plain
+    twins."""
+    return _SubmanifoldConvWide.apply(feats, weight, plan.ranks, plan.sel)
 
 
 def strided_conv(fine_feats: torch.Tensor, down_nbr: torch.Tensor,
@@ -188,15 +281,59 @@ def deconv(coarse_feats: torch.Tensor, f2c: torch.Tensor,
 
 def batch_norm_act(feats: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, running_mean: torch.Tensor,
-                   running_var: torch.Tensor, *, eps: float = 1e-4,
+                   running_var: torch.Tensor, *, training: bool = False,
+                   valid: torch.Tensor | None = None,
+                   dom: torch.Tensor | None = None, n_domains: int = 1,
+                   momentum: float = 0.9, eps: float = 1e-4,
                    leakiness: float = 0.0, act: bool = True) -> torch.Tensor:
-    """Eval-mode batch norm + (leaky) ReLU over voxels with running
-    statistics (``scn.BatchNormLeakyReLU``, eps 1e-4), computed in float32
-    and returned in the feature dtype."""
+    """Masked batch norm + (leaky) ReLU over voxels (``scn.BatchNormLeakyReLU``,
+    eps 1e-4), computed in float32 and returned in the feature dtype.
+
+    Eval: running statistics. Training: statistics of the ``valid`` rows
+    (biased variance), and the running buffers are updated IN PLACE, under
+    ``no_grad``, as running = momentum * running + (1 - momentum) * batch.
+    Domain mode (``dom`` (V,) ids, ``n_domains`` > 1): each domain's rows are
+    normalised with their own statistics, exactly as separate forwards would
+    be; the running buffers take the per-domain updates in domain order, and
+    a domain with no valid row leaves them untouched. Rows of no domain
+    (padding) come out as ``bias`` (before the activation).
+    """
+    if not training:
+        return _act((feats.float() - running_mean)
+                    * (torch.rsqrt(running_var + eps) * scale) + bias,
+                    leakiness, act).to(feats.dtype)
     f32 = feats.float()
-    out = (f32 - running_mean) * (torch.rsqrt(running_var + eps) * scale) \
-        + bias
-    if act:
-        out = torch.where(out >= 0, out, leakiness * out) if leakiness > 0 \
-            else torch.relu(out)
-    return out.to(feats.dtype)
+    if dom is None or n_domains == 1:
+        m = valid.float()[:, None]
+        n = m.sum().clamp(min=1.0)
+        mean = (f32 * m).sum(dim=0) / n
+        var = ((f32 - mean).square() * m).sum(dim=0) / n
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+            running_var.mul_(momentum).add_((1.0 - momentum) * var)
+        out = (f32 - mean) * (torch.rsqrt(var + eps) * scale) + bias
+    else:
+        d = int(n_domains)
+        onehot = ((dom[:, None] == torch.arange(d, device=dom.device))
+                  & valid[:, None]).float()                      # (V, D)
+        counts = onehot.sum(dim=0)
+        denom = counts.clamp(min=1.0)[:, None]
+        mean = (onehot.T @ f32) / denom                          # (D, C)
+        # per-domain stats go back to the rows by one-hot GEMMs, as in the
+        # reference (their backward is a GEMM, not a scatter-add)
+        centered = f32 - onehot @ mean
+        var = (onehot.T @ centered.square()) / denom             # (D, C)
+        with torch.no_grad():
+            for i in range(d):  # sequential; an empty domain keeps momentum 1
+                mom = torch.where(counts[i] > 0, momentum, 1.0)
+                running_mean.mul_(mom).add_((1.0 - mom) * mean[i])
+                running_var.mul_(mom).add_((1.0 - mom) * var[i])
+        out = centered * (onehot @ (torch.rsqrt(var + eps) * scale)) + bias
+    return _act(out, leakiness, act).to(feats.dtype)
+
+
+def _act(x: torch.Tensor, leakiness: float, act: bool) -> torch.Tensor:
+    if not act:
+        return x
+    return torch.where(x >= 0, x, leakiness * x) if leakiness > 0 \
+        else torch.relu(x)

@@ -136,8 +136,19 @@ def pool_features_sorted(feats: torch.Tensor, counts: torch.Tensor,
     return pooled.to(feats.dtype)
 
 
+def spread_misses(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx`` with every negative entry replaced by its own position mod
+    ``n``. A gather at these indices reads some row for each miss, which the
+    caller masks; unlike clamping all misses to row 0, it leaves the
+    gather's backward (a sorted index accumulation that walks each index's
+    run in one thread group) no run of ~10^5 entries at one row, which took
+    seconds per train step on the card."""
+    pos = torch.arange(idx.shape[0], device=idx.device, dtype=idx.dtype)
+    return torch.where(idx >= 0, idx, pos % max(int(n), 1))
+
+
 def unpool_features(vox_feats: torch.Tensor,
                     inverse: torch.Tensor) -> torch.Tensor:
     """Voxel -> point unmapping (``scn.OutputLayer``); padding points get 0."""
-    out = vox_feats[inverse.clamp(0, vox_feats.shape[0] - 1)]
+    out = vox_feats[spread_misses(inverse, vox_feats.shape[0])]
     return torch.where((inverse >= 0)[:, None], out, torch.zeros_like(out))

@@ -1,12 +1,13 @@
 """Batch decoding (PyTorch port of ``mopa_tpu/train/common.py::decode_batch``
-for the keys of an eval batch)."""
+for the keys of eval batches and of pre-EMA train batches)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-_INT_KEYS = ("coords", "img_indices", "seg_label")
+_INT_KEYS = ("coords", "img_indices", "seg_label", "pseudo_label_2d",
+             "pseudo_label_3d", "sam_mask")
 
 
 def decode_batch(batch: dict, device) -> dict:

@@ -1,22 +1,46 @@
-"""Model and voxel-plan set-up shared by the train and eval steps (PyTorch
-port of the eval-path part of ``mopa_tpu/train/trainer.py``)."""
+"""Models, voxel plans and the pre-EMA MoPA train step (PyTorch port of
+``mopa_tpu/train/trainer.py``).
+
+The step is the one the first ``ema_start_iter`` iterations of a MoPA run
+take: one fused forward per modality over the stacked [source; target]
+batches (per-domain batch norm), the source CE, cross-modal KL, pseudo-label
+CE, MinEnt and SAM consistency losses, one joint backward (the cross-modal
+teachers are detached exactly where the reference calls ``.detach()``), an
+update of each net by its own optimizer, then the EMA update. The EMA
+teacher phase, VGI, host-built plans, the other 3D backbones and multi-card
+data parallelism are ROADMAP slice 3 and raise ``NotImplementedError``.
+"""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
+from mopa_tpu_torch.common.solver import (OptimizerSpec, ScheduledOptimizer,
+                                          build_optimizer)
+from mopa_tpu_torch.models import losses as L
+from mopa_tpu_torch.models import weights
 from mopa_tpu_torch.models.build import build_model_2d, build_model_3d
+from mopa_tpu_torch.models.metric import confusion_matrix
 from mopa_tpu_torch.models.scn_unet import (UNetPlan, build_unet_plan_batched,
                                             capacity_schedule)
+from mopa_tpu_torch.train.common import decode_batch
+
+# Names of the profiler ranges that mark the train step's stages, in order.
+TRAIN_STAGES = ("train/decode", "train/plan", "train/net2d", "train/net3d",
+                "train/losses", "train/backward", "train/optim", "train/ema")
+
+_SLICE3 = "not ported yet (ROADMAP slice 3): "
 
 
 def _num_levels(cfg) -> int:
     if cfg.MODEL_3D.TYPE != "SCN":
         raise NotImplementedError(
-            "3D backbone {} not ported yet".format(cfg.MODEL_3D.TYPE))
+            _SLICE3 + "3D backbone {}".format(cfg.MODEL_3D.TYPE))
     return int(cfg.MODEL_3D.SCN.num_planes)
 
 
@@ -29,27 +53,267 @@ def _capacities(cfg, n_points: int):
 
 
 def build_plan_from_batch(cfg, coords: torch.Tensor, valid_flat: torch.Tensor,
-                          sample_size: int) -> UNetPlan:
+                          sample_size: int,
+                          sample_domains=None) -> UNetPlan:
     """Voxel plan for a flat (S*P, 3) batch of S scans of P points each,
     built per sample and stitched into the reference's flat layout. The
-    points are sorted here whatever their order."""
+    points are sorted here whatever their order. ``sample_domains`` (S,)
+    gives each scan's batch-norm domain for a fused forward."""
     p = int(sample_size)
     s = coords.shape[0] // p
     return build_unet_plan_batched(coords.reshape(s, p, 3),
                                    valid_flat.reshape(s, p), _num_levels(cfg),
-                                   capacities=_capacities(cfg, p))
+                                   capacities=_capacities(cfg, p),
+                                   sample_domains=sample_domains)
 
 
 class Models(NamedTuple):
     model_2d: nn.Module
     model_3d: nn.Module
+    tx_2d: OptimizerSpec | None = None
+    tx_3d: OptimizerSpec | None = None
 
 
 def build_models(cfg, device="cuda", seed: int | None = None) -> Models:
     """Both nets with seeded random weights (``RNG_SEED`` unless ``seed``),
-    on ``device`` (the GPU unless the caller asks for the CPU)."""
+    on ``device`` (the GPU unless the caller asks for the CPU), and, where
+    the config names them, their optimizers."""
     gen = torch.Generator().manual_seed(
         int(cfg.RNG_SEED if seed is None else seed))
     model_2d = build_model_2d(cfg, generator=gen)
     model_3d = build_model_3d(cfg, generator=gen)
-    return Models(model_2d.to(device), model_3d.to(device))
+    optim = cfg.OPTIMIZER
+    tx_2d = tx_3d = None
+    if optim.MODEL_2D.TYPE or optim.TYPE:
+        tx_2d = build_optimizer(optim.MODEL_2D, cfg)
+    if optim.MODEL_3D.TYPE or optim.TYPE:
+        tx_3d = build_optimizer(optim.MODEL_3D, cfg)
+    return Models(model_2d.to(device), model_3d.to(device), tx_2d, tx_3d)
+
+
+@dataclass
+class TrainState:
+    """What a train step reads and updates. The parameter and buffer dicts
+    hold the nets' own tensors (float32 parameters; batch-norm running
+    statistics), so the step updates them in place; the EMA dicts hold
+    float32 copies; ``rng`` draws the dropout masks."""
+
+    params_2d: dict
+    batch_stats_2d: dict
+    opt_2d: ScheduledOptimizer
+    params_3d: dict
+    batch_stats_3d: dict
+    opt_3d: ScheduledOptimizer
+    ema_params_2d: dict
+    ema_params_3d: dict
+    step: int
+    rng: torch.Generator
+
+
+def create_train_state(cfg, models: Models, seed: int | None = None,
+                       flax_variables=None) -> TrainState:
+    """The train state over ``models``: their seeded weights, or, with
+    ``flax_variables`` = (params_2d, batch_stats_2d, params_3d,
+    batch_stats_3d) as flattened flax dicts, the reference's weights through
+    the bridge. Optimizers start empty, the EMA params equal the params,
+    ``step`` is 0 and ``rng`` is seeded from ``seed`` (``RNG_SEED``)."""
+    if flax_variables is not None:
+        weights.load_flax_params(models.model_2d, models.model_3d,
+                                 *flax_variables)
+    if models.tx_2d is None or models.tx_3d is None:
+        raise ValueError("OPTIMIZER.MODEL_2D/3D.TYPE must name an optimizer")
+    device = next(models.model_2d.parameters()).device
+    seed = int(cfg.RNG_SEED if seed is None else seed)
+    p2d = dict(models.model_2d.named_parameters())
+    p3d = dict(models.model_3d.named_parameters())
+    return TrainState(
+        params_2d=p2d, batch_stats_2d=dict(models.model_2d.named_buffers()),
+        opt_2d=models.tx_2d.init(list(p2d.values())),
+        params_3d=p3d, batch_stats_3d=dict(models.model_3d.named_buffers()),
+        opt_3d=models.tx_3d.init(list(p3d.values())),
+        ema_params_2d={k: v.detach().clone() for k, v in p2d.items()},
+        ema_params_3d={k: v.detach().clone() for k, v in p3d.items()},
+        step=0,
+        rng=torch.Generator(device=device).manual_seed(seed))
+
+
+def make_train_step(cfg, models: Models, *, with_pl: bool,
+                    with_ema: bool = False, with_mopa: bool = True,
+                    mesh=None):
+    """Return ``train_step(state, batch_src, batch_trg) -> (state,
+    metrics)`` for the pre-EMA phase, on the models' device.
+
+    ``with_pl``: pseudo-label CE on the target (``pseudo_label_2d/3d``);
+    ``with_mopa``: the MoPA-only SAM consistency term (``sam_mask``). The
+    cross-modal, MinEnt and SAM terms are on where their lambdas are > 0.
+    The step updates ``state`` in place and returns it with ``step`` + 1;
+    ``metrics`` maps names to device tensors (losses, ``total_loss``, and
+    the int64 confusion matrices ``cm_src_2d``/``cm_src_3d``). Each stage is
+    one ``record_function`` range named in :data:`TRAIN_STAGES`."""
+    lam = cfg.TRAIN.XMUDA
+    pc_mm = cfg.TRAIN.PC_MM
+    if with_ema:
+        raise NotImplementedError(_SLICE3 + "the EMA teacher phase")
+    if with_mopa and float(pc_mm.lambda_pc_mm) > 0:
+        raise NotImplementedError(_SLICE3 + "VGI (TRAIN.PC_MM.lambda_pc_mm "
+                                  "> 0)")
+    if mesh is not None:
+        raise NotImplementedError(_SLICE3 + "data parallelism over a mesh")
+    if bool(cfg.TRAIN.get("DEPTH_PRED", False)):
+        raise NotImplementedError(_SLICE3 + "the depth head (TRAIN.DEPTH_PRED)")
+    num_levels = _num_levels(cfg)
+    dual_head = bool(cfg.MODEL_2D.DUAL_HEAD)
+    num_classes = int(cfg.MODEL_2D.NUM_CLASSES)
+    with_xm_src = lam.lambda_xm_src > 0
+    with_xm_trg = lam.lambda_xm_trg > 0
+    with_minent = lam.lambda_minent > 0
+    with_sam = with_mopa and pc_mm.lambda_sam_cons > 0
+    mask_budget = int(cfg.TPU.SAM_MASK_BUDGET)
+    ema_alpha = float(pc_mm.ema_alpha_teacher)
+    ema_period = max(int(pc_mm.ema_update_period), 1)
+    ema_start = int(pc_mm.ema_start_iter)
+    device = next(models.model_2d.parameters()).device
+    class_weights = (torch.tensor(cfg.TRAIN.CLASS_WEIGHTS,
+                                  dtype=torch.float32, device=device)
+                     if cfg.TRAIN.CLASS_WEIGHTS else None)
+    pl_weights = class_weights if pc_mm.use_class_weights else None
+    model_2d, model_3d = models.model_2d, models.model_3d
+    if with_sam and not model_2d.output_all:
+        raise ValueError("the SAM loss needs the 2D net's seg_logit_all: "
+                         "build the models with TRAIN.PC_MM.lambda_sam_cons "
+                         "> 0")
+
+    def losses(out2d, out3d, batch_src, batch_trg, b, p):
+        metrics = {}
+        npnt = b * p
+        src_2d = {k: v[:npnt] for k, v in out2d.items()
+                  if k != "seg_logit_all"}
+        trg_2d = {k: v[npnt:] for k, v in out2d.items()
+                  if k != "seg_logit_all"}
+        src_3d = {k: v[:npnt] for k, v in out3d.items()}
+        trg_3d = {k: v[npnt:] for k, v in out3d.items()}
+
+        src_valid = batch_src["point_valid"].reshape(-1)
+        seg_label = batch_src["seg_label"]
+        labelled = src_valid & (seg_label >= 0)
+        loss_src_2d = L.cross_entropy(src_2d["seg_logit"], seg_label,
+                                      labelled, class_weights)
+        loss_src_3d = L.cross_entropy(src_3d["seg_logit"], seg_label,
+                                      labelled, class_weights)
+        metrics["loss_src_2d"] = loss_src_2d
+        metrics["loss_src_3d"] = loss_src_3d
+        total = loss_src_2d + loss_src_3d
+
+        if with_xm_src:
+            s2 = src_2d["seg_logit2" if dual_head else "seg_logit"]
+            s3 = src_3d["seg_logit2" if dual_head else "seg_logit"]
+            xm_2d = L.xm_kl_div(s2, src_3d["seg_logit"].detach(), src_valid)
+            xm_3d = L.xm_kl_div(s3, src_2d["seg_logit"].detach(), src_valid)
+            metrics["xm_loss_src_2d"] = xm_2d
+            metrics["xm_loss_src_3d"] = xm_3d
+            total = total + lam.lambda_xm_src * (xm_2d + xm_3d)
+
+        with torch.no_grad():
+            metrics["cm_src_2d"] = confusion_matrix(
+                src_2d["seg_logit"], seg_label, src_valid, num_classes)
+            metrics["cm_src_3d"] = confusion_matrix(
+                src_3d["seg_logit"], seg_label, src_valid, num_classes)
+
+        trg_valid = batch_trg["point_valid"].reshape(-1)
+        if with_xm_trg:
+            t2 = trg_2d["seg_logit2" if dual_head else "seg_logit"]
+            t3 = trg_3d["seg_logit2" if dual_head else "seg_logit"]
+            xm_2d = L.xm_kl_div(t2, trg_3d["seg_logit"].detach(), trg_valid)
+            xm_3d = L.xm_kl_div(t3, trg_2d["seg_logit"].detach(), trg_valid)
+            metrics["xm_loss_trg_2d"] = xm_2d
+            metrics["xm_loss_trg_3d"] = xm_3d
+            total = total + lam.lambda_xm_trg * (xm_2d + xm_3d)
+
+        if with_pl:
+            pl_2d = batch_trg["pseudo_label_2d"].reshape(-1)
+            pl_3d = batch_trg["pseudo_label_3d"].reshape(-1)
+            pl_loss_2d = L.cross_entropy(trg_2d["seg_logit"], pl_2d,
+                                         trg_valid & (pl_2d >= 0), pl_weights)
+            pl_loss_3d = L.cross_entropy(trg_3d["seg_logit"], pl_3d,
+                                         trg_valid & (pl_3d >= 0), pl_weights)
+            metrics["pl_loss_trg_2d"] = pl_loss_2d
+            metrics["pl_loss_trg_3d"] = pl_loss_3d
+            total = total + lam.lambda_pl * (pl_loss_2d + pl_loss_3d)
+
+        if with_minent:
+            me = L.entropy_loss(torch.softmax(trg_2d["seg_logit"], dim=-1),
+                                trg_valid)
+            me3 = L.entropy_loss(torch.softmax(trg_3d["seg_logit"], dim=-1),
+                                 trg_valid)
+            metrics["minent_2d"] = me
+            metrics["minent_3d"] = me3
+            total = total + lam.lambda_minent * (me + me3)
+
+        if with_sam:
+            probs_all = torch.softmax(out2d["seg_logit_all"][b:], dim=-1)
+            sam = L.mask_cons_loss(probs_all, batch_trg["sam_mask"],
+                                   mask_budget, min_entropy=True)
+            metrics["sam_cons_loss"] = sam
+            total = total + pc_mm.lambda_sam_cons * sam
+        metrics["total_loss"] = total
+        return total, metrics
+
+    def train_step(state: TrainState, batch_src: dict, batch_trg: dict):
+        (decode, plan_r, net2d, net3d, loss_r, backward, optim,
+         ema) = TRAIN_STAGES
+        if any(k.startswith("hp_") for k in (*batch_src, *batch_trg)):
+            raise NotImplementedError(_SLICE3 + "host-built plans (hp_* "
+                                      "batch keys)")
+        model_2d.train()
+        model_3d.train()
+        with record_function(decode):
+            batch_src = decode_batch(batch_src, device)
+            batch_trg = decode_batch(batch_trg, device)
+            b, p = batch_src["img_indices"].shape[:2]
+        with record_function(plan_r):
+            # one plan over the 2B scans: sources are BN domain 0, targets 1
+            with torch.no_grad():
+                plan = build_unet_plan_batched(
+                    torch.cat([batch_src["coords"],
+                               batch_trg["coords"]]).reshape(2 * b, p, 3),
+                    torch.cat([batch_src["point_valid"],
+                               batch_trg["point_valid"]]),
+                    num_levels, capacities=_capacities(cfg, p),
+                    sample_domains=[0] * b + [1] * b)
+        state.opt_2d.zero_grad()
+        state.opt_3d.zero_grad()
+        with record_function(net2d):
+            out2d = model_2d(
+                torch.cat([batch_src["img"], batch_trg["img"]]),
+                torch.cat([batch_src["img_indices"],
+                           batch_trg["img_indices"]]),
+                torch.cat([batch_src["point_valid"],
+                           batch_trg["point_valid"]]),
+                n_domains=2, generator=state.rng)
+        with record_function(net3d):
+            out3d = model_3d(torch.cat([batch_src["feats"],
+                                        batch_trg["feats"]]), plan,
+                             n_domains=2)
+        with record_function(loss_r):
+            total, metrics = losses(out2d, out3d, batch_src, batch_trg, b, p)
+        with record_function(backward):
+            total.backward()
+        with record_function(optim):
+            state.opt_2d.step()
+            state.opt_3d.step()
+        with record_function(ema), torch.no_grad():
+            # 0 before ema_start_iter (the teacher tracks the student), then
+            # ema_alpha every ema_update_period steps and 1 in between
+            active = state.step >= ema_start
+            decay = (ema_alpha if active and state.step % ema_period == 0
+                     else 1.0 if active else 0.0)
+            for ema_p, params in ((state.ema_params_2d, state.params_2d),
+                                  (state.ema_params_3d, state.params_3d)):
+                e = list(ema_p.values())
+                torch._foreach_mul_(e, decay)
+                torch._foreach_add_(e, [params[k].detach() for k in ema_p],
+                                    alpha=1.0 - decay)
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
