@@ -9,7 +9,13 @@ Phases, in order; any failure exits non-zero:
    parallel, for sm_90a, into ``mopa_tpu_torch/_build/``); print the card's
    name and power limit, the build seconds and the compiler's register/spill
    report.
-2. Hold each kernel against its plain PyTorch twin on the card at every
+2. The gather probes at full size (``mopa_tpu_torch.tools.gather_micro``:
+   24 x 16,384 slots, 48 bf16 lanes, 8 taps, Cout 16), with launch counts
+   reset just before and read just after: P1 ``row_gather`` must equal its
+   plain twin bit for bit, P2 ``gather_gemm`` be within max|err| <= 2e-2 *
+   max|ref| of its twin; their times, their twins', the library calls'
+   (``index_select``; indexing then ``matmul``) and their bounds.
+3. Hold each conv kernel against its plain PyTorch twin on the card at every
    (Cin, Cout) of the SCN UNet's 14 submanifold convs: K1 (forward) on the
    plans of one and of eight seeded 16,384-point synthetic scans and on the
    fused 16-scan plan of a train step; K2 (backward: ``d_feats`` and
@@ -18,7 +24,7 @@ Phases, in order; any failure exits non-zero:
    One ``d_w`` shape runs twice and must give the same bits. Time each with
    CUDA events (median of 20 launches after a warm-up), beside the twin, and
    compute the card's bound for the same work.
-3. The eval step at full width (UNetResNet34 + SCN m=16, 7 planes, 10 classes,
+4. The eval step at full width (UNetResNet34 + SCN m=16, 7 planes, 10 classes,
    dual heads, 302x480 images, 16,384-point budget) in bfloat16: 3 requests
    of batch 1, then 1 of batch 8, with launch counts reset just before and
    read just after (14 K1 launches per 3D forward, no K2). Then the same
@@ -27,7 +33,7 @@ Phases, in order; any failure exits non-zero:
    float32 against the plain twins on the card and against the whole port on
    the CPU, to atol 1e-3. Per-request milliseconds and peak memory, 5 warm
    requests of each shape and one request traced by ``torch.profiler``.
-4. The pre-EMA MoPA train step at full width in bfloat16 (8 source + 8
+5. The pre-EMA MoPA train step at full width in bfloat16 (8 source + 8
    target scans, Adam, SAM consistency on, VGI off): 3 steps on distinct
    batches with launch counts reset just before and read just after (per
    step 14 K1, 13 K2 ``d_feats``, 14 K2 ``d_w``), every loss finite; then 5
@@ -37,7 +43,20 @@ Phases, in order; any failure exits non-zero:
    relative, every gradient to 1e-3 of its tensor's largest. Then the median
    of 5 warm bfloat16 steps, the peak memory, and one step traced by
    ``torch.profiler`` split by ``trainer.TRAIN_STAGES``.
-5. Print the kernels line (JSON), the card line, then
+6. The EMA phase of the step at full width in bfloat16 (8 + 8 scans,
+   ``ema_start_iter`` 0, the shipped ``ema_xm_prob`` 0.7; target batches
+   carry the teacher's unaugmented view): 2 steps on distinct batches with
+   launch counts reset just before and read just after (per step 28 K1, 14
+   of them the teacher's, 13 K2 ``d_feats``, 14 K2 ``d_w``), every loss
+   finite, the share of teacher labels kept; 5 student steps on one repeated
+   batch with those teacher labels spliced in (one target for all 5), after
+   which ``total_loss`` must be below its first value; the
+   median of 5 warm steps and of 5 warm teacher calls, the peak memory, and
+   one step traced by ``torch.profiler`` split by ``trainer.TEACHER_STAGES``
+   and ``TRAIN_STAGES``. Then one float32 EMA step of 1 + 1 scans three ways,
+   with ``ema_xm_prob`` forced to 0 and to 1: losses and gradients as in
+   phase 5, and teacher labels equal on >= 99.9 % of the valid points.
+7. Print the kernels line (JSON), the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Weights are random from a seed. Details go to ``chiprun_out/chip_smoke.json``.
@@ -57,10 +76,6 @@ from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-
 POINT_BUDGET = 16384
 IMAGE_SIZE = (480, 302)  # (W, H), the KITTI geometry of bench.py
 NUM_CLASSES = 10
@@ -69,11 +84,14 @@ M, NUM_PLANES = 16, 7
 TIMED_LAUNCHES = 20
 WARM_REQUESTS = 5
 COUNTED_STEPS = 3
+EMA_COUNTED_STEPS = 2
 REPEATED_STEPS = 5
 
 K1 = "K1 submanifold_conv_fwd"
 K2_DFEATS = "K2 submanifold_conv_bwd_dfeats"
 K2_DW = "K2 submanifold_conv_bwd_dw"
+P1 = "P1 row_gather"
+P2 = "P2 gather_gemm"
 
 
 def fail(msg: str) -> None:
@@ -90,10 +108,13 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def make_cfg(dtype: str, train: bool = False, batch_size: int = TRAIN_BATCH):
+def make_cfg(dtype: str, train: bool = False, batch_size: int = TRAIN_BATCH,
+             ema_xm_prob=None):
     """The shipped a2d2_semantic_kitti/xmuda_pl_mopa.yaml model pair, in code
     (no YAML on the card's machine); with ``train`` also its optimizer,
-    schedule and loss weights, with VGI (``lambda_pc_mm``) off."""
+    schedule and loss weights, with VGI (``lambda_pc_mm``) off. With
+    ``ema_xm_prob`` the EMA phase from the first step (``ema_start_iter``
+    0) with that fusion probability."""
     from mopa_tpu_torch.config.xmuda import cfg
 
     c = cfg.clone()
@@ -125,7 +146,9 @@ def make_cfg(dtype: str, train: bool = False, batch_size: int = TRAIN_BATCH):
         c.TRAIN.XMUDA.lambda_pl = 1.0
         c.TRAIN.PC_MM.lambda_pc_mm = 0.0   # VGI: not ported yet
         c.TRAIN.PC_MM.lambda_sam_cons = 0.01
-        c.TRAIN.PC_MM.ema_start_iter = 70000
+        c.TRAIN.PC_MM.ema_start_iter = 70000 if ema_xm_prob is None else 0
+        c.TRAIN.PC_MM.ema_xm_prob = 0.7 if ema_xm_prob is None \
+            else float(ema_xm_prob)
         c.TRAIN.PC_MM.ema_alpha_teacher = 0.999
         c.TRAIN.PC_MM.ema_update_period = 1
         c.TRAIN.PC_MM.use_class_weights = True
@@ -142,23 +165,6 @@ def conv_shapes():
     for l, p in enumerate(planes[:-1]):
         out.append(("l{}_conv2".format(l), l, 2 * p, p))
     return out
-
-
-def cuda_median_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _check(kernel, tag, got, ref, elementwise: bool) -> tuple:
@@ -192,6 +198,7 @@ def kernel_phase(plans: dict, backward_plan: str, device) -> list:
 
     from mopa_tpu_torch.ops import sparse_conv as sc
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.tools import gather_micro as gm
 
     gen = torch.Generator(device=device).manual_seed(1)
     rows = []
@@ -250,11 +257,12 @@ def kernel_phase(plans: dict, backward_plan: str, device) -> list:
                         "neighbour_pairs": pairs, "dtype": dt_name,
                         "max_abs_err": err, "max_abs_ref": ref_max,
                         "tolerance": tol,
-                        "ms": cuda_median_ms(kern),
-                        "plain_ms": cuda_median_ms(plain),
-                        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                        "ms": gm.median_ms(kern, TIMED_LAUNCHES, device),
+                        "plain_ms": gm.median_ms(plain, TIMED_LAUNCHES,
+                                                 device),
+                        "bytes_ms": nbytes / gm.HBM_BYTES_PER_S * 1e3,
                         "ops_ms": 2 * cin * cout * pairs
-                        / PEAK_FLOPS[dt_name] * 1e3}
+                        / gm.PEAK_FLOPS[dt_name] * 1e3}
                     if kernel == K2_DW and name == "l0_conv2":
                         again = kern()
                         row["same_bits_on_rerun"] = bool(torch.equal(got,
@@ -449,7 +457,8 @@ def eval_phase(batches_1, batch_8, device) -> dict:
         print("eval request {} bf16: {:.2f} ms, peak {:.0f} MiB".format(
             tag, ms, peak), flush=True)
     launches = dict(scc.launches)
-    want = {K1: len(conv_shapes()) * len(requests), K2_DFEATS: 0, K2_DW: 0}
+    want = {K1: len(conv_shapes()) * len(requests), K2_DFEATS: 0, K2_DW: 0,
+            P1: 0, P2: 0}
     if launches != want:
         fail("eval path launched {}, expected {}".format(launches, want))
     report["requests"] = req_report
@@ -498,8 +507,10 @@ def eval_phase(batches_1, batch_8, device) -> dict:
     return report
 
 
-def train_batches(n: int, batch_size: int, start: int) -> list:
-    """``n`` (source, target) train batch pairs of ``batch_size`` scans."""
+def train_batches(n: int, batch_size: int, start: int,
+                  with_ema: bool = False) -> list:
+    """``n`` (source, target) train batch pairs of ``batch_size`` scans; with
+    ``with_ema`` the targets carry the EMA teacher's view."""
     from mopa_tpu_torch.data import synthetic
 
     out = []
@@ -507,7 +518,9 @@ def train_batches(n: int, batch_size: int, start: int) -> list:
         idx = start + i * batch_size
         out.append(tuple(synthetic.train_batch(
             batch_size, POINT_BUDGET, start_index=idx, image_size=IMAGE_SIZE,
-            domain=d, num_classes=NUM_CLASSES) for d in ("source", "target")))
+            domain=d, num_classes=NUM_CLASSES,
+            with_ema=with_ema and d == "target")
+            for d in ("source", "target")))
     return out
 
 
@@ -530,24 +543,34 @@ def lift_bn_biases(models, value: float = 3.0) -> None:
                     mod.bias.fill_(value)
 
 
-def f32_step_three_ways(device) -> dict:
+def f32_step_three_ways(device, ema_xm_prob=None) -> dict:
     """One float32 step of 1 + 1 scans: kernels, plain twins on the card, the
     whole port on the CPU. Dropout is off (the card's and the CPU's
-    generators draw other masks)."""
+    generators draw other masks). With ``ema_xm_prob`` (0 or 1, so the
+    generators' bits do not decide the branch) an EMA step, whose teacher
+    labels must agree on >= 99.9 % of the valid points."""
     import torch
 
     from mopa_tpu_torch.train import trainer
 
-    cfg = make_cfg("float32", train=True, batch_size=1)
-    (src, trg), = train_batches(1, 1, 400)
+    ema = ema_xm_prob is not None
+    cfg = make_cfg("float32", train=True, batch_size=1,
+                   ema_xm_prob=ema_xm_prob)
+    (src, trg), = train_batches(1, 1, 400, with_ema=ema)
+    valid = torch.from_numpy(valid_mask(trg))
+    labels = {}
 
     def run(dev, twins: bool):
         models = trainer.build_models(cfg, device=dev, seed=0)
         models.model_2d.net_2d.dropout_rate = 0.0
         lift_bn_biases(models[:2])
         state = trainer.create_train_state(cfg, models)
-        step = trainer.make_train_step(cfg, models, with_pl=True)
+        step = trainer.make_train_step(cfg, models, with_pl=True,
+                                       with_ema=ema)
         with plain_twins() if twins else ExitStack():
+            if ema:
+                labels[(str(dev), twins)] = [
+                    t.cpu()[valid] for t in step.teacher_step(state, trg)]
             _, metrics = step(state, src, trg)
         grads = {}
         for net, model in (("2d", models.model_2d), ("3d", models.model_3d)):
@@ -588,7 +611,19 @@ def f32_step_three_ways(device) -> dict:
                 worst, worst_name = err / max(scale, 1e-30), k
         res[tag] = {"max_loss_rel": max(loss_rel.values()),
                     "max_grad_rel": worst, "max_grad_rel_tensor": worst_name}
-        print("f32 train step 1+1 {}: {}".format(tag, res[tag]), flush=True)
+        if ema:
+            kern_pl, ref_pl = labels[(str(device), False)], labels[
+                (str(dev), twins)]
+            agree = [float((a == b).float().mean())
+                     for a, b in zip(kern_pl, ref_pl)]
+            res[tag]["teacher_label_agreement"] = agree
+            if min(agree) < 0.999:
+                fail("f32 EMA step {} (ema_xm_prob {}): teacher labels agree "
+                     "on {} < 0.999 of the valid points".format(
+                         tag, ema_xm_prob, agree))
+        print("f32 {} step 1+1 {}: {}".format(
+            "EMA (ema_xm_prob {})".format(ema_xm_prob) if ema else "train",
+            tag, res[tag]), flush=True)
     return res
 
 
@@ -623,20 +658,28 @@ def net3d_backward_ms(cfg, models, src, trg, device, n: int = 3) -> float:
     return statistics.median(times)
 
 
-def train_phase(batches, device) -> dict:
-    """Phase 4: the bf16 train step at full width over ``batches`` (one
-    (source, target) pair per counted step), its launch counts, its falling
-    loss, the f32 three-way check, times, memory and profile."""
+def train_phase(batches, device, with_ema: bool = False) -> dict:
+    """Phase 5 (pre-EMA) or, with ``with_ema``, phase 6 (the EMA phase at
+    the shipped ``ema_xm_prob`` 0.7): the bf16 train step at full width over
+    ``batches`` (one (source, target) pair per counted step), its launch
+    counts, its falling loss, times, memory and profile, then the f32
+    three-way check. The EMA phase also reads the share of teacher labels
+    kept and times the teacher alone; its repeated-batch steps run the
+    student step on one set of teacher labels, so the target stays fixed."""
     import torch
 
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
     from mopa_tpu_torch.train import trainer
+    from mopa_tpu_torch.train.common import is_ema_key
 
+    tag = "EMA" if with_ema else "train"
     report = {}
-    cfg = make_cfg("bfloat16", train=True)
+    cfg = make_cfg("bfloat16", train=True,
+                   ema_xm_prob=0.7 if with_ema else None)
     models = trainer.build_models(cfg, device=device, seed=0)
     state = trainer.create_train_state(cfg, models)
-    step = trainer.make_train_step(cfg, models, with_pl=True)
+    step = trainer.make_train_step(cfg, models, with_pl=True,
+                                   with_ema=with_ema)
 
     scc.reset_launch_counts()
     steps = []
@@ -644,49 +687,120 @@ def train_phase(batches, device) -> dict:
         (state, metrics), ms, peak = timed_call(step, state, src, trg)
         losses = _losses(metrics)
         if not all(torch.isfinite(torch.tensor(list(losses.values())))):
-            fail("train step {}: non-finite loss {}".format(i, losses))
+            fail("{} step {}: non-finite loss {}".format(tag, i, losses))
         steps.append({"ms": ms, "peak_mib": peak, "losses": losses,
                       "cm_src_3d_sum": int(metrics["cm_src_3d"].sum())})
-        print("train step {} bf16 8+8: {:.2f} ms, peak {:.0f} MiB, {}".format(
-            i, ms, peak, losses), flush=True)
+        print("{} step {} bf16 8+8: {:.2f} ms, peak {:.0f} MiB, {}".format(
+            tag, i, ms, peak, losses), flush=True)
     launches = dict(scc.launches)
-    n = len(conv_shapes())
-    want = {K1: n * COUNTED_STEPS, K2_DFEATS: (n - 1) * COUNTED_STEPS,
-            K2_DW: n * COUNTED_STEPS}
+    n, k = len(conv_shapes()), len(batches)
+    # the teacher's 3D forward adds n K1 launches per step
+    want = {K1: (2 if with_ema else 1) * n * k, K2_DFEATS: (n - 1) * k,
+            K2_DW: n * k, P1: 0, P2: 0}
     if launches != want:
-        fail("train path launched {}, expected {}".format(launches, want))
+        fail("{} path launched {}, expected {}".format(tag, launches, want))
     report["steps"] = steps
     report["launches"] = launches
 
     src, trg = batches[0]
+    repeated, trg_repeated = step, trg
+    if with_ema:
+        valid = torch.from_numpy(valid_mask(trg)).to(device)
+        pl_2d, pl_3d = step.teacher_step(state, trg)
+        kept = [float(((t.long() >= 0) & valid).sum() / valid.sum())
+                for t in (pl_2d, pl_3d)]
+        report["teacher_labels_kept_share"] = kept
+        print("teacher labels kept (2d, 3d) share of valid points: {}".format(
+            kept))
+        if not all(0.0 < x < 1.0 for x in kept):
+            fail("teacher kept {} of the labels".format(kept))
+        # the teacher reads the student's batch-norm statistics and the EMA
+        # weights, which every step moves: its labels, taken once, are
+        # spliced in so the repeated steps share one target
+        trg_repeated = {k: v for k, v in trg.items() if not is_ema_key(k)}
+        trg_repeated.update(pseudo_label_2d=pl_2d, pseudo_label_3d=pl_3d)
+        repeated = step.student_step
     totals = []
     for _ in range(REPEATED_STEPS):
-        state, metrics = step(state, src, trg)
+        state, metrics = repeated(state, src, trg_repeated)
         totals.append(float(metrics["total_loss"]))
     report["repeated_batch_total_loss"] = totals
-    print("total_loss over {} steps on one batch: {}".format(REPEATED_STEPS,
-                                                            totals))
+    print("{} total_loss over {} steps on one batch: {}".format(
+        tag, REPEATED_STEPS, totals))
     if not totals[-1] < totals[0]:
-        fail("total_loss did not fall on a repeated batch: {}".format(totals))
+        fail("{} total_loss did not fall on a repeated batch: {}".format(
+            tag, totals))
 
     warm = [timed_call(step, state, src, trg) for _ in range(WARM_REQUESTS)]
     report["warm_steps_ms"] = [w[1] for w in warm]
     report["warm_step_median_ms"] = statistics.median(report["warm_steps_ms"])
     report["peak_mib"] = max(w[2] for w in warm)
-    print("warm train steps bf16 8+8 (ms): {}; median {:.2f} ms; peak {:.0f} "
-          "MiB".format(report["warm_steps_ms"], report["warm_step_median_ms"],
-                       report["peak_mib"]), flush=True)
-    report["profile"] = profile_call(lambda: step(state, src, trg),
-                                     trainer.TRAIN_STAGES, top=16)
-    print("train profile bf16 8+8: {}".format(report["profile"]), flush=True)
-    report["net3d_backward_ms"] = net3d_backward_ms(cfg, models, src, trg,
-                                                    device)
-    print("3D net backward alone, bf16 8+8: {} ms".format(
-        report["net3d_backward_ms"]), flush=True)
-    del models, state, step
+    print("warm {} steps bf16 8+8 (ms): {}; median {:.2f} ms; peak {:.0f} "
+          "MiB".format(tag, report["warm_steps_ms"],
+                       report["warm_step_median_ms"], report["peak_mib"]),
+          flush=True)
+    stages = trainer.TRAIN_STAGES
+    if with_ema:
+        teacher = [timed_call(step.teacher_step, state, trg)
+                   for _ in range(WARM_REQUESTS)]
+        report["warm_teacher_ms"] = [t[1] for t in teacher]
+        report["warm_teacher_median_ms"] = statistics.median(
+            report["warm_teacher_ms"])
+        report["teacher_peak_mib"] = max(t[2] for t in teacher)
+        print("teacher alone (ms): {}; median {:.2f} ms; peak {:.0f} MiB"
+              .format(report["warm_teacher_ms"],
+                      report["warm_teacher_median_ms"],
+                      report["teacher_peak_mib"]), flush=True)
+        stages = trainer.TEACHER_STAGES + stages
+    report["profile"] = profile_call(lambda: step(state, src, trg), stages,
+                                     top=16)
+    print("{} profile bf16 8+8: {}".format(tag, report["profile"]),
+          flush=True)
+    if not with_ema:
+        report["net3d_backward_ms"] = net3d_backward_ms(cfg, models, src, trg,
+                                                        device)
+        print("3D net backward alone, bf16 8+8: {} ms".format(
+            report["net3d_backward_ms"]), flush=True)
+    del models, state, step, repeated
     torch.cuda.empty_cache()
-    report["f32_three_ways"] = f32_step_three_ways(device)
+    if with_ema:
+        report["f32_three_ways"] = {
+            "ema_xm_prob_{}".format(x): f32_step_three_ways(device, x)
+            for x in (0, 1)}
+    else:
+        report["f32_three_ways"] = f32_step_three_ways(device)
     return report
+
+
+def gather_phase(device) -> dict:
+    """Phase 2: the port's gather probe at full size; P1 bit-exact against
+    its twin, P2 within the bf16 rule; exact launch counts."""
+    import math
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.tools import gather_micro as gm
+
+    scc.reset_launch_counts()
+    res = gm.run_probes(n=TIMED_LAUNCHES, device=device)
+    launches = dict(scc.launches)
+    per_probe = gm.WARMUP + TIMED_LAUNCHES + 1
+    want = {K1: 0, K2_DFEATS: 0, K2_DW: 0, P1: per_probe, P2: per_probe}
+    if launches != want:
+        fail("gather probe launched {}, expected {}".format(launches, want))
+    res["launches"] = launches
+    for line in gm.report_lines(res):
+        print(line, flush=True)
+    if not res["gather"]["bit_exact"]:
+        fail("P1 differs from its plain twin: max|err| {}".format(
+            res["gather"]["max_abs_err"]))
+    fused = res["fused"]
+    fused["tolerance"] = "max|err| <= 2e-2*max|ref|"
+    if not fused["max_abs_err"] <= 2e-2 * fused["max_abs_ref"]:
+        fail("P2 disagrees with its plain twin: max|err| {} (max|ref| {})"
+             .format(fused["max_abs_err"], fused["max_abs_ref"]))
+    if not all(math.isfinite(res[k]["checksum"]) for k in ("gather", "fused")):
+        fail("gather probe checksums are not finite")
+    return res
 
 
 def kernel_entry(kernel: str, rows: list, launches: int, source: str,
@@ -746,11 +860,17 @@ def main() -> None:
                                    image_size=IMAGE_SIZE)
     t0 = time.perf_counter()
     batches_t = train_batches(COUNTED_STEPS, TRAIN_BATCH, 100)
+    batches_e = train_batches(EMA_COUNTED_STEPS, TRAIN_BATCH, 200,
+                              with_ema=True)
     report["train_data_s"] = time.perf_counter() - t0
     src, trg = batches_t[0]
     cfg = make_cfg("bfloat16")
 
-    # -- phase 2: each kernel against its plain twin at every conv shape
+    # -- phase 2: the gather probes
+    report["gather"] = gather_phase(device)
+    torch.cuda.empty_cache()
+
+    # -- phase 3: each conv kernel against its plain twin at every conv shape
     plans = {}
     for name, batch in (("batch1", batches_1[0]), ("batch8", batch_8)):
         b, p = batch["img_indices"].shape[:2]
@@ -768,15 +888,20 @@ def main() -> None:
     report["kernel_rows"] = rows
     del plans
 
-    # -- phase 3: the eval step
+    # -- phase 4: the eval step
     report["eval"] = eval_phase(batches_1, batch_8, device)
     torch.cuda.empty_cache()
 
-    # -- phase 4: the train step
+    # -- phase 5: the train step
     report["train"] = train_phase(batches_t, device)
+    torch.cuda.empty_cache()
 
-    # -- phase 5: summary lines; each kernel at the shapes the train step
-    # gives it (the fused 16-scan plan, bfloat16)
+    # -- phase 6: the EMA phase of the train step
+    report["ema"] = train_phase(batches_e, device, with_ema=True)
+
+    # -- phase 7: summary lines; each conv kernel at the shapes the train
+    # step gives it (the fused 16-scan plan, bfloat16), each probe kernel at
+    # the probe's
     train_launches = report["train"]["launches"]
 
     def main_rows(kernel):
@@ -795,6 +920,19 @@ def main() -> None:
                      "mopa_tpu_torch/csrc/submanifold_conv_dw.cu",
                      "mopa_tpu/ops/sparse_conv_pallas.py:96"),
     ]
+    probes = report["gather"]
+    for name, key, line, library_ms in (
+            (P1, "gather", 83, probes["library"]["index_select_ms"]),
+            (P2, "fused", 124, None)):
+        r = probes[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mopa_tpu_torch/csrc/gather_micro.cu",
+            "replaces": "tools/gather_micro.py:{}".format(line),
+            "launches": probes["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": library_ms})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

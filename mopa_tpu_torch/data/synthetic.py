@@ -8,7 +8,9 @@ the image are kept. Points are scaled to 5 cm voxel coordinates (scale 20),
 subsampled to the point budget with an evenly strided pick, and sorted by
 voxel key per scan, as the reference's collate does for train batches. Train
 batches add the target-domain keys of the pre-EMA MoPA step: offline pseudo
-labels and SAM mask ids. No augmentation is applied.
+labels and SAM mask ids. No augmentation is applied, except to the student
+view of a target batch that also carries the EMA teacher's unaugmented view
+(``train_batch(..., with_ema=True)``).
 """
 
 from __future__ import annotations
@@ -141,22 +143,82 @@ def sam_mask(rng: np.random.Generator, image_size, mask_budget: int,
         np.int64)
 
 
+def ema_views(sample: dict, point_budget: int, seed) -> tuple:
+    """(student, ori, ema_map) of one scan for the EMA phase.
+
+    ``ori`` is the teacher's unaugmented view: the scan picked to the budget
+    with an evenly strided pick and key-sorted. The student view is another
+    point set: a random 10 % of the ori points are dropped and as many points
+    of the scan outside the ori pick take their place (none when the scan
+    fits the budget); its coordinates are mirrored in y and its image is
+    flipped left-right with its pixel columns. It is key-sorted too, so
+    ``ema_map`` (student point -> its position in the sorted ori view, -1
+    for a point the teacher did not see) holds shifted positions, as the
+    reference's collate leaves it after sorting both views."""
+    rng = np.random.default_rng(np.random.SeedSequence(seed))
+    coords, p = sample["coords"], int(point_budget)
+    n = coords.shape[0]
+    pick = np.arange(n) if n <= p else \
+        np.linspace(0, n - 1, p).round().astype(np.int64)
+    ori_ids = pick[np.argsort(_lexkey(coords[pick]), kind="stable")]
+    k = ori_ids.shape[0]
+    others = np.setdiff1d(np.arange(n), pick)
+    n_new = min(k // 10, others.shape[0])
+    kept = np.sort(rng.permutation(k)[:k - n_new])
+    stu_ids = np.concatenate([ori_ids[kept],
+                              rng.choice(others, n_new, replace=False)])
+    stu_pos = np.concatenate([kept, np.full(n_new, -1)])
+    stu_coords = coords[stu_ids].copy()
+    stu_coords[:, 1] = coords[:, 1].max() - stu_coords[:, 1]
+    order = np.argsort(_lexkey(stu_coords), kind="stable")
+    img_indices = sample["img_indices"][stu_ids[order]].copy()
+    w = sample["img"].shape[1]
+    img_indices[:, 1] = w - 1 - img_indices[:, 1]
+    student = {"img": np.ascontiguousarray(sample["img"][:, ::-1]),
+               "img_indices": img_indices, "coords": stu_coords[order],
+               "seg_label": sample["seg_label"][stu_ids[order]]}
+    ori = {"img": sample["img"],
+           "img_indices": sample["img_indices"][ori_ids],
+           "coords": coords[ori_ids], "seg_label": sample["seg_label"][ori_ids]}
+    return student, ori, stu_pos[order]
+
+
 def train_batch(batch_size: int, point_budget: int = 16384,
                 start_index: int = 0, image_size=(480, 302),
                 domain: str = "source", mask_budget: int = 64,
-                num_classes: int = 10) -> dict:
+                num_classes: int = 10, with_ema: bool = False) -> dict:
     """A collated train batch of scans ``start_index ..`` of one domain, in
     the wire format of :func:`collate_eval`. The target domain draws other
     scans and adds ``pseudo_label_2d``/``pseudo_label_3d`` (B*P,) (the
     labels with 30 % dropped to -100, as offline pseudo labels leave points
-    out) and ``sam_mask`` (B, H, W) ids in [-1, ``mask_budget``)."""
+    out) and ``sam_mask`` (B, H, W) ids in [-1, ``mask_budget``).
+
+    ``with_ema`` (target only) makes the batch the student view of
+    :func:`ema_views` and adds the teacher's keys: ``ori_img`` (B, H, W, 3)
+    uint8, ``ori_img_indices`` (B, P, 2), ``ori_coords`` (B*P, 3),
+    ``ori_num_points`` (B,), ``ori_feats_ones`` (B, 1) and ``ema_map``
+    (B, P) (-1 at padding and for points the teacher did not see)."""
     if domain not in ("source", "target"):
         raise ValueError("domain must be 'source' or 'target'")
     target = domain == "target"
-    out = collate_eval(
-        [eval_sample(start_index + i, image_size=image_size,
-                     num_classes=num_classes, stream=int(target))
-         for i in range(batch_size)], point_budget)
+    if with_ema and not target:
+        raise ValueError("only target batches carry the EMA teacher's view")
+    samples = [eval_sample(start_index + i, image_size=image_size,
+                           num_classes=num_classes, stream=int(target))
+               for i in range(batch_size)]
+    if with_ema:
+        views = [ema_views(smp, point_budget, [SCAN_SEED, start_index + i, 3])
+                 for i, smp in enumerate(samples)]
+        samples = [v[0] for v in views]
+        ori = collate_eval([v[1] for v in views], point_budget)
+    out = collate_eval(samples, point_budget)
+    if with_ema:
+        for k in ("img", "img_indices", "coords", "num_points",
+                  "feats_ones"):
+            out["ori_" + k] = ori[k]
+        out["ema_map"] = np.full((batch_size, point_budget), -1, np.int64)
+        for i, (_, _, emap) in enumerate(views):
+            out["ema_map"][i, :emap.shape[0]] = emap
     if target:
         rng = np.random.default_rng(np.random.SeedSequence(
             [SCAN_SEED, start_index, batch_size, 2]))

@@ -12,9 +12,11 @@ The sources are ``mopa_tpu_torch/csrc/submanifold_conv.cu`` (K1, K2
 ``d_feats``) and ``csrc/submanifold_conv_dw.cu`` (K2 ``d_w``); their headers
 say what bounds each kernel on the card and how the design answers it.
 
-Each source is compiled for ``sm_90a`` by ``nvcc`` at first use into
-``mopa_tpu_torch/_build/`` (named by the source's hash; the compilers run in
-parallel), loaded with ``ctypes`` and launched on PyTorch's current stream.
+Every CUDA source of the port (these two and ``csrc/gather_micro.cu``, the
+gather probes of ``ops/gather.py``) is compiled for ``sm_90a`` by ``nvcc`` at
+first use into ``mopa_tpu_torch/_build/`` by :func:`build` (named by the
+source's hash; the compilers run in parallel), loaded with ``ctypes`` and
+launched on PyTorch's current stream.
 Nothing here imports a CUDA toolchain at module import, and nothing falls
 back: a missing ``nvcc``, a failed build or a failed launch raises.
 """
@@ -32,7 +34,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"conv": _PKG / "csrc" / "submanifold_conv.cu",
-           "dw": _PKG / "csrc" / "submanifold_conv_dw.cu"}
+           "dw": _PKG / "csrc" / "submanifold_conv_dw.cu",
+           "gather": _PKG / "csrc" / "gather_micro.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,10 +44,13 @@ COUT_MAX = 192  # the register tiles' widest output width (csrc kCoutMax)
 K1 = "K1 submanifold_conv_fwd"
 K2_DFEATS = "K2 submanifold_conv_bwd_dfeats"
 K2_DW = "K2 submanifold_conv_bwd_dw"
+P1 = "P1 row_gather"    # ops/gather.py
+P2 = "P2 gather_gemm"   # ops/gather.py
 
-# Launch count of each kernel; only the wrappers below add to it, once per
-# launch, so a caller can show which path a run went through.
-launches = {K1: 0, K2_DFEATS: 0, K2_DW: 0}
+# Launch count of every kernel of the port; only the kernels' wrappers (below
+# and in ops/gather.py) add to it, once per launch, so a caller can show
+# which path a run went through.
+launches = {K1: 0, K2_DFEATS: 0, K2_DW: 0, P1: 0, P2: 0}
 
 _libs: dict | None = None
 
@@ -114,6 +120,11 @@ def build() -> dict:
     libs["dw"].mopa_subm_conv_bwd_dw.restype = cint
     libs["dw"].mopa_subm_conv_dw_ranges.argtypes = [cint]
     libs["dw"].mopa_subm_conv_dw_ranges.restype = cint
+    libs["gather"].mopa_row_gather.argtypes = [ptr] * 3 + [cint] * 4 + [ptr]
+    libs["gather"].mopa_gather_gemm.argtypes = [ptr] * 4 + [cint] * 5 + [ptr]
+    for fn in (libs["gather"].mopa_row_gather,
+               libs["gather"].mopa_gather_gemm):
+        fn.restype = cint
     _libs = libs
     return libs
 

@@ -1,14 +1,16 @@
-"""Models, voxel plans and the pre-EMA MoPA train step (PyTorch port of
+"""Models, voxel plans and the MoPA train step (PyTorch port of
 ``mopa_tpu/train/trainer.py``).
 
-The step is the one the first ``ema_start_iter`` iterations of a MoPA run
-take: one fused forward per modality over the stacked [source; target]
-batches (per-domain batch norm), the source CE, cross-modal KL, pseudo-label
-CE, MinEnt and SAM consistency losses, one joint backward (the cross-modal
-teachers are detached exactly where the reference calls ``.detach()``), an
-update of each net by its own optimizer, then the EMA update. The EMA
-teacher phase, VGI, host-built plans, the other 3D backbones and multi-card
-data parallelism are ROADMAP slice 3 and raise ``NotImplementedError``.
+The student step is the one every iteration of a MoPA run takes: one fused
+forward per modality over the stacked [source; target] batches (per-domain
+batch norm), the source CE, cross-modal KL, pseudo-label CE, MinEnt and SAM
+consistency losses, one joint backward (the cross-modal teachers are
+detached exactly where the reference calls ``.detach()``), an update of each
+net by its own optimizer, then the EMA update. From ``ema_start_iter`` on
+(``with_ema``), an EMA teacher first labels the target batch from its
+unaugmented view, and its labels replace the offline pseudo labels. VGI,
+host-built plans, the other 3D backbones and multi-card data parallelism are
+ROADMAP slice 4 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,29 +20,36 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.profiler import record_function
 
 from mopa_tpu_torch.common.solver import (OptimizerSpec, ScheduledOptimizer,
                                           build_optimizer)
+from mopa_tpu_torch.data.utils.refine_pseudo_labels import \
+    refine_pseudo_labels
 from mopa_tpu_torch.models import losses as L
 from mopa_tpu_torch.models import weights
 from mopa_tpu_torch.models.build import build_model_2d, build_model_3d
 from mopa_tpu_torch.models.metric import confusion_matrix
 from mopa_tpu_torch.models.scn_unet import (UNetPlan, build_unet_plan_batched,
                                             capacity_schedule)
-from mopa_tpu_torch.train.common import decode_batch
+from mopa_tpu_torch.train.common import decode_batch, is_ema_key
 
 # Names of the profiler ranges that mark the train step's stages, in order.
 TRAIN_STAGES = ("train/decode", "train/plan", "train/net2d", "train/net3d",
                 "train/losses", "train/backward", "train/optim", "train/ema")
+# The EMA teacher's stages, which run before the train step's in the EMA
+# phase.
+TEACHER_STAGES = ("teacher/decode", "teacher/plan", "teacher/net2d",
+                  "teacher/net3d", "teacher/refine")
 
-_SLICE3 = "not ported yet (ROADMAP slice 3): "
+_SLICE4 = "not ported yet (ROADMAP slice 4): "
 
 
 def _num_levels(cfg) -> int:
     if cfg.MODEL_3D.TYPE != "SCN":
         raise NotImplementedError(
-            _SLICE3 + "3D backbone {}".format(cfg.MODEL_3D.TYPE))
+            _SLICE4 + "3D backbone {}".format(cfg.MODEL_3D.TYPE))
     return int(cfg.MODEL_3D.SCN.num_planes)
 
 
@@ -137,30 +146,99 @@ def create_train_state(cfg, models: Models, seed: int | None = None,
         rng=torch.Generator(device=device).manual_seed(seed))
 
 
+def teacher_forward(cfg, models: Models, state: TrainState, batch: dict):
+    """The EMA teacher's float32 softmax (B*P, C) of the 2D and of the 3D net
+    over a decoded batch's unaugmented view (``ori_*`` keys).
+
+    Both nets run in eval mode without gradients, with the EMA parameters
+    and the student's batch-norm running statistics, as the reference's
+    teacher applies ``ema_params`` with ``batch_stats``. The plan is built
+    from ``ori_coords`` in one batch-norm domain."""
+    _, plan_r, net2d, net3d, _ = TEACHER_STAGES
+    p = batch["ori_img_indices"].shape[1]
+    valid = batch["ori_point_valid"]
+    models.model_2d.eval()
+    models.model_3d.eval()
+    with torch.no_grad():
+        with record_function(plan_r):
+            plan = build_plan_from_batch(cfg, batch["ori_coords"],
+                                         valid.reshape(-1), p)
+        with record_function(net2d):
+            out2d = functional_call(models.model_2d, state.ema_params_2d,
+                                    (batch["ori_img"],
+                                     batch["ori_img_indices"], valid))
+        with record_function(net3d):
+            out3d = functional_call(models.model_3d, state.ema_params_3d,
+                                    (batch["ori_feats"], plan))
+        return (torch.softmax(out2d["seg_logit"].float(), dim=-1),
+                torch.softmax(out3d["seg_logit"].float(), dim=-1))
+
+
+def teacher_labels(probs_2d: torch.Tensor, probs_3d: torch.Tensor,
+                   valid: torch.Tensor, ema_map: torch.Tensor, use_xm: bool,
+                   num_classes: int):
+    """The teacher's labels (B*P_student,) int64 for the 2D and the 3D loss.
+
+    ``use_xm``: one refinement of the entropy-weighted fusion of both nets'
+    probabilities (per class: each modality weighted by the inverse of its
+    ``prob_2_entropy``), used for both; else each net's own probabilities
+    refined. ``valid`` (B*P,) masks the ori points; ``ema_map`` (B,
+    P_student) gives each student point's position in its scan's ori view;
+    entries outside [0, P) give -100."""
+    def refine(probs):
+        return refine_pseudo_labels(probs.amax(dim=-1), probs.argmax(dim=-1),
+                                    valid, num_classes)
+
+    if use_xm:
+        rv2 = 1.0 / (L.prob_2_entropy(probs_2d) + 1e-30)
+        rv3 = 1.0 / (L.prob_2_entropy(probs_3d) + 1e-30)
+        w2 = rv2 / (rv2 + rv3)
+        ps_2d = ps_3d = refine(w2 * probs_2d + (1.0 - w2) * probs_3d)
+    else:
+        ps_2d, ps_3d = refine(probs_2d), refine(probs_3d)
+    b = ema_map.shape[0]
+    p = valid.shape[0] // b
+    base = torch.arange(b, device=ema_map.device)[:, None] * p
+    seen = (ema_map >= 0) & (ema_map < p)
+    flat = torch.where(seen, ema_map + base,
+                       torch.full_like(ema_map, -1)).reshape(-1)
+    safe = flat.clamp(0, b * p - 1)
+    ignore = torch.full_like(flat, -100)
+    return (torch.where(flat >= 0, ps_2d[safe], ignore),
+            torch.where(flat >= 0, ps_3d[safe], ignore))
+
+
 def make_train_step(cfg, models: Models, *, with_pl: bool,
                     with_ema: bool = False, with_mopa: bool = True,
                     mesh=None):
     """Return ``train_step(state, batch_src, batch_trg) -> (state,
-    metrics)`` for the pre-EMA phase, on the models' device.
+    metrics)`` on the models' device.
 
     ``with_pl``: pseudo-label CE on the target (``pseudo_label_2d/3d``);
-    ``with_mopa``: the MoPA-only SAM consistency term (``sam_mask``). The
-    cross-modal, MinEnt and SAM terms are on where their lambdas are > 0.
-    The step updates ``state`` in place and returns it with ``step`` + 1;
-    ``metrics`` maps names to device tensors (losses, ``total_loss``, and
-    the int64 confusion matrices ``cm_src_2d``/``cm_src_3d``). Each stage is
-    one ``record_function`` range named in :data:`TRAIN_STAGES`."""
+    ``with_ema`` (needs ``with_pl``): the EMA phase, where a teacher labels
+    the target first (:func:`teacher_forward`, :func:`teacher_labels`) from
+    the target's EMA-only keys (``train.common.EMA_ONLY_KEYS``), its labels
+    replace ``pseudo_label_2d/3d``, and the EMA-only keys are stripped before
+    the student step; ``with_mopa``: the MoPA-only SAM consistency term
+    (``sam_mask``). The cross-modal, MinEnt and SAM terms are on where their
+    lambdas are > 0. The step updates ``state`` in place and returns it with
+    ``step`` + 1; ``metrics`` maps names to device tensors (losses,
+    ``total_loss``, and the int64 confusion matrices
+    ``cm_src_2d``/``cm_src_3d``). Each stage is one ``record_function``
+    range named in :data:`TRAIN_STAGES` (and :data:`TEACHER_STAGES`). With
+    ``with_ema`` the returned step exposes its halves as ``.teacher_step(state,
+    batch_trg) -> (pl_2d, pl_3d)`` (int16) and ``.student_step``."""
     lam = cfg.TRAIN.XMUDA
     pc_mm = cfg.TRAIN.PC_MM
-    if with_ema:
-        raise NotImplementedError(_SLICE3 + "the EMA teacher phase")
+    if with_ema and not with_pl:
+        raise ValueError("EMA teacher implies pseudo-label CE (with_pl)")
     if with_mopa and float(pc_mm.lambda_pc_mm) > 0:
-        raise NotImplementedError(_SLICE3 + "VGI (TRAIN.PC_MM.lambda_pc_mm "
+        raise NotImplementedError(_SLICE4 + "VGI (TRAIN.PC_MM.lambda_pc_mm "
                                   "> 0)")
     if mesh is not None:
-        raise NotImplementedError(_SLICE3 + "data parallelism over a mesh")
+        raise NotImplementedError(_SLICE4 + "data parallelism over a mesh")
     if bool(cfg.TRAIN.get("DEPTH_PRED", False)):
-        raise NotImplementedError(_SLICE3 + "the depth head (TRAIN.DEPTH_PRED)")
+        raise NotImplementedError(_SLICE4 + "the depth head (TRAIN.DEPTH_PRED)")
     num_levels = _num_levels(cfg)
     dual_head = bool(cfg.MODEL_2D.DUAL_HEAD)
     num_classes = int(cfg.MODEL_2D.NUM_CLASSES)
@@ -262,7 +340,7 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         (decode, plan_r, net2d, net3d, loss_r, backward, optim,
          ema) = TRAIN_STAGES
         if any(k.startswith("hp_") for k in (*batch_src, *batch_trg)):
-            raise NotImplementedError(_SLICE3 + "host-built plans (hp_* "
+            raise NotImplementedError(_SLICE4 + "host-built plans (hp_* "
                                       "batch keys)")
         model_2d.train()
         model_3d.train()
@@ -316,4 +394,37 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
-    return train_step
+    if not with_ema:
+        return train_step
+    ema_xm_prob = float(pc_mm.ema_xm_prob)
+
+    def teacher_step(state: TrainState, batch_trg: dict):
+        decode, *_, refine_r = TEACHER_STAGES
+        if any(k.startswith("hp_") for k in batch_trg):
+            raise NotImplementedError(_SLICE4 + "host-built plans (hp_* "
+                                      "batch keys)")
+        with record_function(decode):
+            batch = decode_batch({k: v for k, v in batch_trg.items()
+                                  if is_ema_key(k)}, device)
+            # one Bernoulli(ema_xm_prob) draw: the fused or the per-net labels
+            u = torch.rand((), generator=state.rng, device=state.rng.device)
+        probs_2d, probs_3d = teacher_forward(cfg, models, state, batch)
+        with record_function(refine_r):
+            pl_2d, pl_3d = teacher_labels(
+                probs_2d, probs_3d, batch["ori_point_valid"].reshape(-1),
+                batch["ema_map"], bool(u <= ema_xm_prob), num_classes)
+            # the offline pseudo labels' wire dtype
+            return pl_2d.to(torch.int16), pl_3d.to(torch.int16)
+
+    def step_with_teacher(state: TrainState, batch_src: dict,
+                          batch_trg: dict):
+        pl_2d, pl_3d = teacher_step(state, batch_trg)
+        trg = {k: v for k, v in batch_trg.items() if not is_ema_key(k)}
+        trg["pseudo_label_2d"] = pl_2d
+        trg["pseudo_label_3d"] = pl_3d
+        src = {k: v for k, v in batch_src.items() if not is_ema_key(k)}
+        return train_step(state, src, trg)
+
+    step_with_teacher.teacher_step = teacher_step
+    step_with_teacher.student_step = train_step
+    return step_with_teacher

@@ -23,7 +23,8 @@ on the other side of the kink moves the gradient of every encoder tensor by
   second to 1e-4.
 * (c) The port sorts points itself: the step on shuffled scans gives the
   losses of the step on sorted scans.
-* Each path the port does not have yet raises ``NotImplementedError``.
+* Each path the port does not have yet raises ``NotImplementedError``
+  naming ROADMAP slice 4 (VGI and host-built plans).
 """
 
 import flax.linen
@@ -302,8 +303,8 @@ def test_step_on_shuffled_points():
                                    err_msg=k, **LOSS_TOL)
 
 
-@pytest.mark.parametrize("case", ["ema", "vgi", "host_plans", "backbone",
-                                  "mesh", "depth"])
+@pytest.mark.parametrize("case", ["ema_host_plans", "vgi", "host_plans",
+                                  "backbone", "mesh", "depth"])
 def test_unported_paths_raise(case):
     kw = {}
     if case == "vgi":
@@ -315,12 +316,14 @@ def test_unported_paths_raise(case):
     pcfg = _cfg(port_base_cfg, **kw)
     build_cfg = _cfg(port_base_cfg)
     models = port_trainer.build_models(build_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 4"):
         step = port_trainer.make_train_step(
-            pcfg, models, with_pl=True, with_ema=case == "ema",
+            pcfg, models, with_pl=True, with_ema=case == "ema_host_plans",
             mesh=object() if case == "mesh" else None)
         state = port_trainer.create_train_state(build_cfg, models)
         src, trg = _batch(1, False), _batch(2, True)
         if case == "host_plans":
             src["hp_rankn"] = np.zeros((B, 8), np.uint8)
+        if case == "ema_host_plans":
+            trg["hp_ori_rankn"] = np.zeros((B, 8), np.uint8)
         step(state, src, trg)
