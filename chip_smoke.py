@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. Build the kernels (``mopa_tpu_torch/csrc/*.cu``, one nvcc per source, in
    parallel, for sm_90a, into ``mopa_tpu_torch/_build/``); print the card's
    name and power limit, the build seconds and the compiler's register/spill
-   report.
+   report. Per kernel of the two conv libraries, the registers and spills
+   (ptxas) and the tensor-core MMA instructions (``HMMA``/``HGMMA`` in
+   ``cuobjdump -sass``): every tensor-core kernel must hold MMAs and spill
+   nothing.
 2. The gather probes at full size (``mopa_tpu_torch.tools.gather_micro``:
    24 x 16,384 slots, 48 bf16 lanes, 8 taps, Cout 16), with launch counts
    reset just before and read just after: P1 ``row_gather`` must equal its
@@ -21,13 +24,16 @@ Phases, in order; any failure exits non-zero:
    fused 16-scan plan of a train step; K2 (backward: ``d_feats`` and
    ``d_w``) on that train plan. float32 to atol = rtol = 1e-4 (``d_w``:
    max|err| <= 1e-4 * max|ref|), bfloat16 to max|err| <= 2e-2 * max|ref|.
-   One ``d_w`` shape runs twice and must give the same bits. Time each with
-   CUDA events (median of 20 launches after a warm-up), beside the twin, and
-   compute the card's bound for the same work.
+   One ``d_w`` shape runs twice and must give the same bits. bfloat16 runs
+   the tensor-core route, float32 the CUDA-core route (``sparse_conv_cuda.
+   route_for``). Time each with CUDA events (median of 20 launches after a
+   warm-up), beside the twin, and compute the card's bound for the same work
+   and the share of it reached (``bound_share`` = bound / time).
 4. The eval step at full width (UNetResNet34 + SCN m=16, 7 planes, 10 classes,
    dual heads, 302x480 images, 16,384-point budget) in bfloat16: 3 requests
    of batch 1, then 1 of batch 8, with launch counts reset just before and
-   read just after (14 K1 launches per 3D forward, no K2). Then the same
+   read just after (14 K1 launches per 3D forward, no K2, all on the
+   tensor-core route). Then the same
    requests with the plain twins swapped in: argmax agreement >= 0.99 on
    valid points and max probability delta <= 2e-2. One batch-1 request in
    float32 against the plain twins on the card and against the whole port on
@@ -36,7 +42,8 @@ Phases, in order; any failure exits non-zero:
 5. The pre-EMA MoPA train step at full width in bfloat16 (8 source + 8
    target scans, Adam, SAM consistency on, VGI off): 3 steps on distinct
    batches with launch counts reset just before and read just after (per
-   step 14 K1, 13 K2 ``d_feats``, 14 K2 ``d_w``), every loss finite; then 5
+   step 14 K1, 13 K2 ``d_feats``, 14 K2 ``d_w``, all on the tensor-core
+   route), every loss finite; then 5
    steps on one repeated batch, after which ``total_loss`` must be below its
    first value. Then one float32 step of 1 + 1 scans three ways (kernels,
    plain twins on the card, the whole port on the CPU): losses to 1e-3
@@ -47,8 +54,8 @@ Phases, in order; any failure exits non-zero:
    ``ema_start_iter`` 0, the shipped ``ema_xm_prob`` 0.7; target batches
    carry the teacher's unaugmented view): 2 steps on distinct batches with
    launch counts reset just before and read just after (per step 28 K1, 14
-   of them the teacher's, 13 K2 ``d_feats``, 14 K2 ``d_w``), every loss
-   finite, the share of teacher labels kept; 5 student steps on one repeated
+   of them the teacher's, 13 K2 ``d_feats``, 14 K2 ``d_w``, all on the
+   tensor-core route), every loss finite, the share of teacher labels kept; 5 student steps on one repeated
    batch with those teacher labels spliced in (one target for all 5), after
    which ``total_loss`` must be below its first value; the
    median of 5 warm steps and of 5 warm teacher calls, the peak memory, and
@@ -56,8 +63,9 @@ Phases, in order; any failure exits non-zero:
    and ``TRAIN_STAGES``. Then one float32 EMA step of 1 + 1 scans three ways,
    with ``ema_xm_prob`` forced to 0 and to 1: losses and gradients as in
    phase 5, and teacher labels equal on >= 99.9 % of the valid points.
-7. Print the kernels line (JSON), the card line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+7. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
+   and ``kernel_route`` the conv kernels' route on the main path), the card
+   line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Weights are random from a seed. Details go to ``chiprun_out/chip_smoke.json``.
 Nothing here imports JAX or the JAX package.
@@ -65,7 +73,11 @@ Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -210,6 +222,8 @@ def kernel_phase(plans: dict, backward_plan: str, device) -> list:
             pairs = sum(int((((codes >> (2 * j)) & 3) != 3).sum())
                         for j in range(3))
             plan_bytes = 2 * v * 9 * 4
+            # (tile, column) blocks the tensor-core conv kernel stages
+            col_tiles = int(scc.tile_columns(lv.ranks, lv.sel, v).sum())
             for dtype in (torch.float32, torch.bfloat16):
                 dt_name = str(dtype).split(".")[-1]
                 tag = "{} {} {}".format(plan_name, name, dt_name)
@@ -255,6 +269,7 @@ def kernel_phase(plans: dict, backward_plan: str, device) -> list:
                         "kernel": kernel, "plan": plan_name, "conv": name,
                         "cin": cin, "cout": cout, "voxel_rows": v,
                         "neighbour_pairs": pairs, "dtype": dt_name,
+                        "route": scc.route_for(dtype),
                         "max_abs_err": err, "max_abs_ref": ref_max,
                         "tolerance": tol,
                         "ms": gm.median_ms(kern, TIMED_LAUNCHES, device),
@@ -263,6 +278,16 @@ def kernel_phase(plans: dict, backward_plan: str, device) -> list:
                         "bytes_ms": nbytes / gm.HBM_BYTES_PER_S * 1e3,
                         "ops_ms": 2 * cin * cout * pairs
                         / gm.PEAK_FLOPS[dt_name] * 1e3}
+                    row["bound_share"] = max(row["bytes_ms"],
+                                             row["ops_ms"]) / row["ms"]
+                    if kernel != K2_DW:
+                        # the dense MMA work of the staged (tile, column)
+                        # blocks: 3 slots x all channels, pairs or not
+                        kp, np_ = scc.conv_tile_shape(
+                            *((cin, cout) if kernel == K1 else (cout, cin)))
+                        row["tile_ops_ms"] = (
+                            2 * col_tiles * scc.TILE_M * kp * np_
+                            / gm.PEAK_FLOPS["bfloat16"] * 1e3)
                     if kernel == K2_DW and name == "l0_conv2":
                         again = kern()
                         row["same_bits_on_rerun"] = bool(torch.equal(got,
@@ -271,12 +296,110 @@ def kernel_phase(plans: dict, backward_plan: str, device) -> list:
                             fail("K2 d_w gave other bits on a rerun at "
                                  + tag)
                     rows.append(row)
-                    print("{kernel} {plan} {conv} ({cin},{cout}) {dtype}: "
-                          "{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-                          "{b:.4f} ms) max|err| {max_abs_err:.3g}".format(
+                    print("{kernel} {plan} {conv} ({cin},{cout}) {dtype} "
+                          "[{route}]: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                          "bound {b:.4f} ms, share {bound_share:.3f}) "
+                          "max|err| {max_abs_err:.3g}".format(
                               b=max(row["bytes_ms"], row["ops_ms"]), **row),
                           flush=True)
     return rows
+
+
+def tensor_core_routes(tag: str) -> dict:
+    """The conv kernels' launch counts by route since the last reset; fails
+    if a bfloat16 path sent any of them to the CUDA-core route."""
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+
+    routes = {k: dict(v) for k, v in scc.routes.items()}
+    off = {k: v for k, v in routes.items() if v[scc.CUDA_CORE]}
+    if off:
+        fail("{} launched conv kernels off the tensor-core route: {}".format(
+            tag, off))
+    return routes
+
+
+# a conv library's kernel and its template arguments (int, then an
+# optional bool) in a mangled name
+_KERNEL_NAME = re.compile(r"(subm_conv_(?:dw_)?(?:(?:f32|tc)_kernel|reduce))"
+                          r"(?:ILi(\d+)E(?:Lb([01])E)?)?")
+
+
+def _kernel_name(mangled: str):
+    m = _KERNEL_NAME.search(mangled)
+    if m is None:
+        return None
+    args = [a for a in m.groups()[1:] if a is not None]
+    return m.group(1) + ("<{}>".format(",".join(args)) if args else "")
+
+
+def _cuobjdump() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    found = [os.path.join(home, "bin", "cuobjdump"), shutil.which("cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        found.append(os.path.join(os.path.dirname(spec.origin), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    for path in found:
+        if path and os.path.exists(path):
+            return path
+    fail("cuobjdump not found (CUDA toolkit or triton's copy)")
+
+
+def conv_kernel_report() -> dict:
+    """Per kernel of the two conv libraries: registers and spilled bytes
+    (ptxas's report, kept beside each library) and the tensor-core MMA
+    instructions (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``).
+    Fails if a tensor-core kernel holds no MMA or spills."""
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+
+    tool = _cuobjdump()
+    report = {}
+    for lib in ("conv", "dw"):
+        so = scc.library_path(lib)
+        kernels = {}
+        cur = None
+        for line in so.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line) \
+                or re.search(r"Function properties for (\S+)", line)
+            if m:
+                cur = _kernel_name(m.group(1))
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                kernels.setdefault(cur, {})["spill_bytes"] = \
+                    int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                kernels.setdefault(cur, {})["registers"] = int(m.group(1))
+        res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode != 0:
+            fail("cuobjdump -sass {} failed: {}".format(so, res.stderr))
+        cur = None
+        for line in res.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = _kernel_name(m.group(1))
+                if cur is not None:
+                    kernels.setdefault(cur, {}).setdefault("mma", 0)
+                continue
+            if cur is not None and re.search(r"\bHG?MMA\b", line):
+                kernels[cur]["mma"] += 1
+        tc = {k: v for k, v in kernels.items() if "_tc_kernel" in k}
+        if not tc:
+            fail("no tensor-core kernel found in {}".format(so.name))
+        for name, info in tc.items():
+            if not info.get("mma"):
+                fail("{} holds no tensor-core MMA instruction".format(name))
+            if info.get("spill_bytes", 1) != 0:
+                fail("{} spills (or ptxas reported nothing): {}".format(
+                    name, info))
+        report[lib] = kernels
+    return report
 
 
 def plain_twins():
@@ -463,6 +586,7 @@ def eval_phase(batches_1, batch_8, device) -> dict:
         fail("eval path launched {}, expected {}".format(launches, want))
     report["requests"] = req_report
     report["launches"] = launches
+    report["routes"] = tensor_core_routes("eval path")
 
     with plain_twins():
         for (tag, batch), out, rr in zip(requests, outs, req_report):
@@ -701,6 +825,8 @@ def train_phase(batches, device, with_ema: bool = False) -> dict:
         fail("{} path launched {}, expected {}".format(tag, launches, want))
     report["steps"] = steps
     report["launches"] = launches
+    report["routes"] = tensor_core_routes(tag + " path")
+    print("{} path launches by route: {}".format(tag, report["routes"]))
 
     src, trg = batches[0]
     repeated, trg_repeated = step, trg
@@ -805,16 +931,21 @@ def gather_phase(device) -> dict:
 
 def kernel_entry(kernel: str, rows: list, launches: int, source: str,
                  replaces: str) -> dict:
+    """One kernel's summary over ``rows`` (one dtype, so one route): sums of
+    times and bounds, the bound's share of the time. ``route`` is the build
+    route (CUDA C++), ``kernel_route`` the rows' kernel route."""
     bytes_ms = sum(r["bytes_ms"] for r in rows)
     ops_ms = sum(r["ops_ms"] for r in rows)
-    return {"name": kernel, "route": "cuda", "source": source,
+    ms = sum(r["ms"] for r in rows)
+    bound_ms = sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows)
+    return {"name": kernel, "route": "cuda",
+            "kernel_route": rows[0]["route"], "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows),
+            "ms": ms, "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+            "bound_share": bound_ms / ms, "library_ms": None}
 
 
 def main() -> None:
@@ -851,6 +982,9 @@ def main() -> None:
         len(scc.SOURCES), report["build_s"]))
     for text in report["ptxas"].values():
         print(text.strip())
+    report["conv_kernels"] = conv_kernel_report()
+    print("conv kernels (registers, spilled bytes, tensor-core MMA "
+          "instructions): {}".format(report["conv_kernels"]), flush=True)
 
     # -- data: 3 single-scan requests, one batch of 8 scans, and the fused
     # 8 + 8 scan plan of a train step (source and target BN domains)
@@ -904,22 +1038,25 @@ def main() -> None:
     # the probe's
     train_launches = report["train"]["launches"]
 
-    def main_rows(kernel):
+    def main_rows(kernel, dtype="bfloat16"):
         return [r for r in rows if r["kernel"] == kernel
-                and r["plan"] == "train16" and r["dtype"] == "bfloat16"
+                and r["plan"] == "train16" and r["dtype"] == dtype
                 and not (kernel == K2_DFEATS and r["conv"] == "stem")]
 
     src_conv = "mopa_tpu_torch/csrc/submanifold_conv.cu"
-    kernels = [
-        kernel_entry(K1, main_rows(K1), train_launches[K1], src_conv,
-                     "mopa_tpu/ops/sparse_conv_pallas.py:75"),
-        kernel_entry(K2_DFEATS, main_rows(K2_DFEATS),
-                     train_launches[K2_DFEATS], src_conv,
-                     "mopa_tpu/ops/sparse_conv_pallas.py:96"),
-        kernel_entry(K2_DW, main_rows(K2_DW), train_launches[K2_DW],
-                     "mopa_tpu_torch/csrc/submanifold_conv_dw.cu",
-                     "mopa_tpu/ops/sparse_conv_pallas.py:96"),
-    ]
+    conv_kernels = (
+        (K1, src_conv, "mopa_tpu/ops/sparse_conv_pallas.py:75"),
+        (K2_DFEATS, src_conv, "mopa_tpu/ops/sparse_conv_pallas.py:96"),
+        (K2_DW, "mopa_tpu_torch/csrc/submanifold_conv_dw.cu",
+         "mopa_tpu/ops/sparse_conv_pallas.py:96"))
+    kernels = [kernel_entry(name, main_rows(name), train_launches[name],
+                            source, replaces)
+               for name, source, replaces in conv_kernels]
+    # the float32 (CUDA-core) route at the same shapes, checked and timed
+    # in phase 3 but off the main path: in the JSON report only
+    report["kernels_f32"] = [
+        kernel_entry(name, main_rows(name, "float32"), 0, source, replaces)
+        for name, source, replaces in conv_kernels]
     probes = report["gather"]
     for name, key, line, library_ms in (
             (P1, "gather", 83, probes["library"]["index_select_ms"]),
@@ -932,7 +1069,8 @@ def main() -> None:
             "launches": probes["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": library_ms})
+            "bound_by": r["bound_by"], "bound_share": r["bound_ms"] / r["ms"],
+            "library_ms": library_ms})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

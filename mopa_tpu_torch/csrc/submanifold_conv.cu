@@ -7,73 +7,93 @@
 // _conv_kernel (+ _gather_window), and the d_feats half of _bwd_kernel: the
 // backward's d_feats is the SAME windowed conv of the cotangent g with the
 // mirrored, transposed weight W'[k] = W[26-k]^T (u is v's neighbour at offset
-// o iff v is u's at -o, and the offsets enumerate symmetrically). The mirror
-// mode below reads W' straight out of the forward weight, so no transposed
-// copy is made. The Pallas kernels kept a whole per-sample feature table in
-// VMEM. A 15,564-row table does not fit an SM's shared memory, so this
-// kernel works on the GLOBAL flat plan instead: no per-sample localisation.
+// o iff v is u's at -o, and the offsets enumerate symmetrically). The Pallas
+// kernels kept a whole per-sample feature table in VMEM. A 15,564-row table
+// does not fit an SM's shared memory, so these kernels work on the GLOBAL
+// flat plan instead: no per-sample localisation.
 //
 // What it computes, for every voxel v and every (dx, dy) column c (0..8):
 // rows ranks[v*9+c] + j, j = 0..2, are the column's consecutive z-run; the
 // packed code sel[v*9+c] holds, in bits [2j, 2j+2), the dz slot t (0..2) that
 // row j feeds, 3 = none. Slot t of column c multiplies kernel offset k = 3c+t,
-// i.e. weight[k] (Cin x Cout). out[v] = sum over the existing (row, k) pairs
-// of feats[row] @ weight[k], accumulated in float32, written in the feature
-// dtype (float32 or bfloat16). Rows outside [0, V) never contribute: the
-// all-miss sentinel of the last sample points one past the table.
+// i.e. weight[k] (Cin x Cout). out[v] = sum over c of the column's aligned
+// window (3*Cin values: slot t's row, or zeros) @ W_c, W_c = weight[3c..3c+2]
+// as a (3*Cin, Cout) block -- _conv_kernel's loop. Rows outside [0, V) never
+// contribute: the all-miss sentinel of the last sample points one past the
+// table.
 //
-// Bound on this card: at the shapes of the eval path the work is
-// 2*Cin*Cout FLOPs per existing neighbour pair (about 10-20 pairs per voxel of
-// 27) against (Cin+Cout)*dtype + 72 bytes of compulsory traffic per voxel, so
-// in float32 the card's CUDA-core rate bounds it and in bfloat16 the memory
-// rate does (see PERF.md for the numbers).
+// Two routes, chosen by the wrapper from the dtype:
 //
-// Design (simple and right first; wgmma/TMA come later): one CTA owns a tile
-// of 64 voxels and all Cout (<= 192, the widest d_feats of the backward:
-// l5_conv2's Cin) outputs, kept in registers
-// (8 voxels x ceil(Cout/32) channels per thread). It first resolves, for each
-// of its voxels, the source row of each of the 27 kernel offsets into shared
-// memory. Then, for each offset that any voxel of the tile has, it gathers the
-// tile's rows through L1/L2 in 32-channel chunks into shared memory (zero where
-// absent), stages the matching 32 x Cout slice of weight[k] next to it, and
-// runs the FMA loop. Offsets no voxel of the tile has are skipped. No whole
-// table and no whole weight is ever staged.
+// * bfloat16 (the train step, the EMA teacher and eval): subm_conv_tc_kernel,
+//   tensor cores. What bounds it: 2*Cin*Cout FLOPs per existing neighbour
+//   pair (4.8-9.2 pairs per row of 27 on the train plan) against
+//   (Cin+Cout)*2 + 72 bytes per voxel, so memory bounds it; but the work
+//   arrives as a gather of 3-row z-runs scattered over a level's table (up to
+//   48 MB), so the L2 latency of the gather and the tile's dense MMA work are
+//   what it really spends. Design:
+//   - A CTA (8 warps) owns 128 voxels x all Cout (padded to NP = 16..192),
+//     accumulated in float32 registers; warp w holds rows 16w..16w+15.
+//     128-row tiles halve the weight traffic from L2 against 64-row ones
+//     (every tile reads every active column's weight block).
+//   - It resolves its voxels' 27 source rows once into shared memory and
+//     skips the columns in which none of its voxels has a pair (a padding
+//     tile costs one pass over its plan entries).
+//   - It walks K = (active columns) x (3*Cin padded to kKC) in kKC-deep
+//     stages. A stage holds the tile's dz-aligned windows of one column (A,
+//     128 x kKC: each 16-byte piece of a row is one cp.async of 8 channels of
+//     one slot's row, zero-filled where the slot is empty) and the matching
+//     rows of the packed weight (B, kKC x NP, dense). A kStages-deep ring of
+//     cp.async groups keeps the next stages' gathers in flight while the
+//     current one multiplies, one barrier per stage.
+//   - ldmatrix feeds mma.sync m16n8k16 (bf16 -> f32); rows are padded by 16
+//     bytes so the 8 row addresses of an 8x8 matrix hit 8 distinct bank
+//     groups. Why mma.sync and not wgmma: the kernel's time is the gather's
+//     latency, not the MMA rate (the dense tile work is < 0.1 ms of tensor
+//     core time per conv), and mma.sync's per-warp fragments need no shared-
+//     memory descriptors or swizzle modes, which cannot be checked off the
+//     card.
+//   - The weight comes packed by the wrapper as (9, KP, NP) bf16: column c's
+//     (3*Cin, Cout) block, zero-padded to KP (a multiple of kKC) rows and NP
+//     columns, so B loads never mask. The mirror mode (d_feats) is the same
+//     kernel with the pack of W' = weight[::-1].transpose(1, 2).
+//   - The stem (Cin = 1: 2-byte rows, below cp.async's 16) stages its
+//     windows with plain loads into the same layout.
+//   - Epilogue: float32 -> bf16 through shared memory, written as 16-byte
+//     rows.
+//
+// * float32 (only the checking paths: chip_smoke's f32 rows and its float32
+//   1 + 1 steps): subm_conv_f32_kernel, CUDA cores, so float32 stays within
+//   1e-4 of the plain twin (TF32 would not). A CTA owns 64 voxels x all Cout
+//   in registers, resolves its voxels' 27 source rows, and per offset that
+//   any voxel has stages the gathered rows and the weight slice in 32-channel
+//   chunks and runs an FMA loop. The mirror mode reads W' in place.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "tensor_core.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------- float32
+
 constexpr int kTileV = 64;       // voxels per CTA
 constexpr int kChunk = 32;       // input channels per staged chunk
-constexpr int kCoutMax = 192;    // widest Cout the register tile holds
+constexpr int kCoutMax = 192;    // widest Cout either route holds
 constexpr int kThreadsX = 32;    // output channels per pass
 constexpr int kThreadsY = 8;     // voxel rows per pass
 constexpr int kRows = kTileV / kThreadsY;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // NM = ceil(Cout / 32): output-channel passes held per thread. mirror = 0:
 // weight is (27, cin, cout) and offset k multiplies weight[k]. mirror = 1 (the
 // backward's d_feats): weight is the forward's (27, cout, cin) and offset k
 // multiplies weight[26 - k]^T.
-template <typename T, int NM>
+template <int NM>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
-subm_conv_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ ranks,
-                     const int* __restrict__ sel, const T* __restrict__ weight,
-                     T* __restrict__ out, int V, int cin, int cout,
+subm_conv_f32_kernel(const float* __restrict__ feats,
+                     const int* __restrict__ ranks,
+                     const int* __restrict__ sel,
+                     const float* __restrict__ weight,
+                     float* __restrict__ out, int V, int cin, int cout,
                      int mirror) {
   __shared__ int src_s[kTileV][27];
   __shared__ int any_s[27];
@@ -121,29 +141,29 @@ subm_conv_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ ranks,
 
   for (int k = 0; k < 27; ++k) {
     if (!any_s[k]) continue;  // uniform across the CTA
-    const T* wk = weight + static_cast<size_t>(mirror ? 26 - k : k) * cin * cout;
+    const float* wk =
+        weight + static_cast<size_t>(mirror ? 26 - k : k) * cin * cout;
     for (int k0 = 0; k0 < cin; k0 += kChunk) {
       const int kc = min(kChunk, cin - k0);
       for (int i = tid; i < kTileV * kChunk; i += nthreads) {
         const int lv = i / kChunk;
         const int kk = i % kChunk;
         const int row = src_s[lv][k];
-        float val = 0.f;
-        if (row >= 0 && kk < kc)
-          val = to_f32(feats[static_cast<size_t>(row) * cin + k0 + kk]);
-        a_s[lv][kk] = val;
+        a_s[lv][kk] = (row >= 0 && kk < kc)
+                          ? feats[static_cast<size_t>(row) * cin + k0 + kk]
+                          : 0.f;
       }
       if (mirror) {  // wk is (cout, cin): walk kk fastest for coalesced reads
         for (int i = tid; i < kc * cout; i += nthreads) {
           const int kk = i % kc;
           const int co = i / kc;
-          w_s[kk][co] = to_f32(wk[static_cast<size_t>(co) * cin + k0 + kk]);
+          w_s[kk][co] = wk[static_cast<size_t>(co) * cin + k0 + kk];
         }
       } else {
         for (int i = tid; i < kc * cout; i += nthreads) {
           const int kk = i / cout;
           const int co = i % cout;
-          w_s[kk][co] = to_f32(wk[static_cast<size_t>(k0 + kk) * cout + co]);
+          w_s[kk][co] = wk[static_cast<size_t>(k0 + kk) * cout + co];
         }
       }
       __syncthreads();
@@ -172,71 +192,362 @@ subm_conv_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ ranks,
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
       const int co = tx + kThreadsX * m;
-      if (co < cout) out[v * cout + co] = from_f32<T>(acc[r][m]);
+      if (co < cout) out[v * cout + co] = acc[r][m];
     }
   }
 }
 
-template <typename T>
-void launch(int nm, const void* feats, const void* ranks, const void* sel,
+int run_f32(const void* feats, const void* ranks, const void* sel,
             const void* weight, void* out, int V, int cin, int cout,
-            int mirror, cudaStream_t stream) {
+            int mirror, void* stream) {
+  if (V <= 0) return 0;
+  if (cin < 1 || cout < 1 || cout > kCoutMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nm = (cout + kThreadsX - 1) / kThreadsX;
   const dim3 block(kThreadsX, kThreadsY);
   const dim3 grid((V + kTileV - 1) / kTileV);
-  const T* f = static_cast<const T*>(feats);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* f = static_cast<const float*>(feats);
   const int* r = static_cast<const int*>(ranks);
   const int* s = static_cast<const int*>(sel);
-  const T* w = static_cast<const T*>(weight);
-  T* o = static_cast<T*>(out);
+  const float* w = static_cast<const float*>(weight);
+  float* o = static_cast<float*>(out);
   switch (nm) {
 #define MOPA_CASE(N)                                                       \
     case N:                                                                \
-      subm_conv_fwd_kernel<T, N><<<grid, block, 0, stream>>>(              \
-          f, r, s, w, o, V, cin, cout, mirror);                            \
+      subm_conv_f32_kernel<N><<<grid, block, 0, st>>>(f, r, s, w, o, V,    \
+                                                      cin, cout, mirror);  \
       break;
     MOPA_CASE(1) MOPA_CASE(2) MOPA_CASE(3) MOPA_CASE(4) MOPA_CASE(5)
     default: MOPA_CASE(6)
 #undef MOPA_CASE
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
-int run(const void* feats, const void* ranks, const void* sel,
-        const void* weight, void* out, int V, int cin, int cout, int is_bf16,
-        int mirror, void* stream) {
-  if (V <= 0) return 0;
-  if (cin < 1 || cout < 1 || cout > kCoutMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nm = (cout + kThreadsX - 1) / kThreadsX;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch<__nv_bfloat16>(nm, feats, ranks, sel, weight, out, V, cin, cout,
-                          mirror, st);
-  else
-    launch<float>(nm, feats, ranks, sel, weight, out, V, cin, cout, mirror,
-                  st);
+// ---------------------------------------------------------------- bfloat16
+
+constexpr int kTileM = 128;             // voxels per CTA
+constexpr int kWarps = kTileM / 16;     // one 16-row block per warp
+constexpr int kThreads = kWarps * 32;
+constexpr int kKC = 32;                 // K depth of one pipeline stage
+constexpr int kStages = 4;              // cp.async ring depth
+constexpr int kApitch = kKC + 8;        // bf16 per A row in shared memory
+constexpr int kFlags = 32;              // ints: column flags, list, count
+
+// bf16 elements of one ring stage of the NP-wide kernel: A, then B as
+// [kKC][NP + 8] (forward) or as [NP][kKC + 8] (mirror).
+__host__ __device__ constexpr int tc_stage_elems(int np) {
+  return kTileM * kApitch
+         + (kKC * (np + 8) > np * kApitch ? kKC * (np + 8) : np * kApitch);
+}
+
+// Dynamic shared memory of the NP-wide kernel: the resolved rows, the
+// column list, then the ring of stages (reused by the epilogue).
+constexpr int tc_smem_bytes(int np) {
+  return (27 * kTileM + kFlags) * 4 + kStages * tc_stage_elems(np) * 2;
+}
+
+// NT = NP / 16: 16-wide output blocks per warp. feats (V, cin) and out (V,
+// cout) bf16; weight is the FORWARD weight, bf16: (27, cin, cout) when
+// !MIRROR, (27, cout, cin) when MIRROR (d_feats: feats is the cotangent
+// and column c's slot t multiplies weight[26 - 3c - t]^T). Column c's B
+// block is (kp, NP), zero beyond 3*cin rows and cout columns. The two modes
+// are instances of one kernel: they differ in how B is staged and loaded.
+template <int NT, bool MIRROR>
+__global__ void __launch_bounds__(kThreads, NT <= 6 ? 2 : 1)
+subm_conv_tc_kernel(const bf16* __restrict__ feats,
+                    const int* __restrict__ ranks,
+                    const int* __restrict__ sel,
+                    const bf16* __restrict__ weight, bf16* __restrict__ out,
+                    int V, int cin, int cout, int kp) {
+  using namespace mopa_tc;
+  constexpr int NP = 16 * NT;
+  constexpr int kBpitch = NP + 8;   // forward B: [kKC][kBpitch]
+  constexpr int kAStage = kTileM * kApitch;
+  constexpr int kStage = tc_stage_elems(NP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* src_s = reinterpret_cast<int*>(smem);  // [27][kTileM] source rows
+  int* flag_s = src_s + 27 * kTileM;          // [0, 9) active, [16, 25) list
+  bf16* ring = reinterpret_cast<bf16*>(flag_s + kFlags);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long v0 = static_cast<long long>(blockIdx.x) * kTileM;
+
+  for (int i = tid; i < 27 * kTileM; i += kThreads) src_s[i] = -1;
+  if (tid < kFlags) flag_s[tid] = 0;
+  __syncthreads();
+  for (int i = tid; i < kTileM * 9; i += kThreads) {
+    const int lv = i / 9;
+    const int c = i % 9;
+    const long long v = v0 + lv;
+    if (v >= V) continue;
+    const int r = ranks[v * 9 + c];
+    const int code = sel[v * 9 + c];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int t = (code >> (2 * j)) & 3;
+      const long long row = static_cast<long long>(r) + j;
+      if (t < 3 && row >= 0 && row < V) {
+        src_s[(3 * c + t) * kTileM + lv] = static_cast<int>(row);
+        flag_s[c] = 1;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int c = 0; c < 9; ++c)
+      if (flag_s[c]) flag_s[16 + n++] = c;
+    flag_s[kFlags - 1] = n;
+  }
+  __syncthreads();
+
+  const int nck = kp / kKC;  // stages per column
+  const int n_items = flag_s[kFlags - 1] * nck;
+  const int kcol = 3 * cin;
+  const bool vec_a = (cin % 8) == 0;
+  // 16-byte B pieces run along cout (forward) or along cin (mirror)
+  const bool vec_b = ((MIRROR ? cin : cout) % 8) == 0;
+
+  // Stage `item` (column list[item / nck], K rows [k0, k0 + kKC)) into ring
+  // slot `slot`.
+  auto load = [&](int item, int slot) {
+    const int c = flag_s[16 + item / nck];
+    const int k0 = (item % nck) * kKC;
+    bf16* a_s = ring + slot * kStage;
+    bf16* b_s = a_s + kAStage;
+    if (vec_a) {
+      // thread's 16-byte piece s = tid % 4 of rows tid / 4 + 64 i
+      const int k = k0 + 8 * (tid % (kKC / 8));
+      const int t = k < kcol ? k / cin : 0;
+      const int ci = k - t * cin;
+      for (int lv = tid / (kKC / 8); lv < kTileM;
+           lv += kThreads / (kKC / 8)) {
+        const int row = k < kcol ? src_s[(3 * c + t) * kTileM + lv] : -1;
+        const bf16* src =
+            row >= 0 ? feats + static_cast<size_t>(row) * cin + ci : feats;
+        cp_async16(smem_u32(a_s + lv * kApitch + (k - k0)), src, row >= 0);
+      }
+    } else {  // rows narrower than 16 bytes (the stem): plain loads,
+              // voxels across the threads so the few real K rows spread
+      for (int i = tid; i < kTileM * kKC; i += kThreads) {
+        const int lv = i % kTileM;
+        const int k = k0 + i / kTileM;
+        bf16 val = __float2bfloat16(0.f);
+        if (k < kcol) {
+          const int t = k / cin;
+          const int row = src_s[(3 * c + t) * kTileM + lv];
+          if (row >= 0)
+            val = feats[static_cast<size_t>(row) * cin + (k - t * cin)];
+        }
+        a_s[lv * kApitch + (k - k0)] = val;
+      }
+    }
+    if (!MIRROR) {
+      // B[k][n] = weight[3c + k / cin][k % cin][n]: row 3c*cin + k of the
+      // (27*cin, cout) weight
+      const bf16* wc = weight + static_cast<size_t>(3 * c * cin) * cout;
+      if (vec_b) {
+        for (int i = tid; i < kKC * (NP / 8); i += kThreads) {
+          const int r = i / (NP / 8);
+          const int n = 8 * (i % (NP / 8));
+          const bool ok = k0 + r < kcol && n < cout;
+          const bf16* src =
+              ok ? wc + static_cast<size_t>(k0 + r) * cout + n : weight;
+          cp_async16(smem_u32(b_s + r * kBpitch + n), src, ok);
+        }
+      } else {
+        for (int i = tid; i < kKC * NP; i += kThreads) {
+          const int r = i / NP;
+          const int n = i % NP;
+          b_s[r * kBpitch + n] =
+              k0 + r < kcol && n < cout
+                  ? wc[static_cast<size_t>(k0 + r) * cout + n]
+                  : __float2bfloat16(0.f);
+        }
+      }
+    } else {
+      // Bt[n][k] = B[k][n] = weight[26 - 3c - t][n][k % cin], t = k / cin:
+      // along k the rows of W[26 - 3c - t] are contiguous
+      if (vec_b) {
+        for (int i = tid; i < NP * (kKC / 8); i += kThreads) {
+          const int n = i / (kKC / 8);
+          const int kk = 8 * (i % (kKC / 8));
+          const int k = k0 + kk;
+          const bool ok = k < kcol && n < cout;
+          const bf16* src = weight;
+          if (ok) {
+            const int t = k / cin;
+            src = weight
+                + (static_cast<size_t>(26 - 3 * c - t) * cout + n) * cin
+                + (k - t * cin);
+          }
+          cp_async16(smem_u32(b_s + n * kApitch + kk), src, ok);
+        }
+      } else {
+        for (int i = tid; i < NP * kKC; i += kThreads) {
+          const int n = i / kKC;
+          const int k = k0 + i % kKC;
+          bf16 val = __float2bfloat16(0.f);
+          if (k < kcol && n < cout) {
+            const int t = k / cin;
+            val = weight[(static_cast<size_t>(26 - 3 * c - t) * cout + n)
+                             * cin
+                         + (k - t * cin)];
+          }
+          b_s[n * kApitch + i % kKC] = val;
+        }
+      }
+    }
+  };
+
+  float acc[NT][2][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][h][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_items) load(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage `it` landed; stage it - 1 is free for reuse
+    const int next = it + kStages - 1;
+    if (next < n_items) load(next, next % kStages);
+    cp_async_commit();
+    const bf16* a_s = ring + (it % kStages) * kStage;
+    const bf16* b_s = a_s + kAStage;
+#pragma unroll
+    for (int ks = 0; ks < kKC / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(smem_u32(a_s + (warp * 16 + (lane & 15)) * kApitch + ks * 16
+                       + (lane >> 4) * 8),
+              a);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        // b[0], b[1]: output columns 16j..16j+7; b[2], b[3]: +8
+        uint32_t b[4];
+        if (!MIRROR)
+          ldsm_x4_trans(smem_u32(b_s + (ks * 16 + (lane & 15)) * kBpitch
+                                 + j * 16 + (lane >> 4) * 8),
+                        b);
+        else  // matrix q of the x4: n + 8 (q / 2), k + 8 (q % 2)
+          ldsm_x4(smem_u32(b_s + (j * 16 + (lane & 7) + (lane >> 4) * 8)
+                                     * kApitch
+                           + ks * 16 + ((lane >> 3) & 1) * 8),
+                  b);
+        mma_bf16(acc[j][0], a, b[0], b[1]);
+        mma_bf16(acc[j][1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the bf16 tile there
+
+  bf16* o_s = ring;  // [kTileM][kBpitch]
+  const int g = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = j * 16 + h * 8 + 2 * q;
+      const int row = warp * 16 + g;
+      *reinterpret_cast<__nv_bfloat162*>(o_s + row * kBpitch + col) =
+          __floats2bfloat162_rn(acc[j][h][0], acc[j][h][1]);
+      *reinterpret_cast<__nv_bfloat162*>(o_s + (row + 8) * kBpitch + col) =
+          __floats2bfloat162_rn(acc[j][h][2], acc[j][h][3]);
+    }
+  __syncthreads();
+  if (cout % 8 == 0) {
+    const int segs = cout / 8;
+    for (int i = tid; i < kTileM * segs; i += kThreads) {
+      const int lv = i / segs;
+      const int s = i % segs;
+      const long long v = v0 + lv;
+      if (v < V)
+        *reinterpret_cast<uint4*>(out + v * cout + 8 * s) =
+            *reinterpret_cast<const uint4*>(o_s + lv * kBpitch + 8 * s);
+    }
+  } else {
+    for (int i = tid; i < kTileM * cout; i += kThreads) {
+      const int lv = i / cout;
+      const int co = i % cout;
+      const long long v = v0 + lv;
+      if (v < V) out[v * cout + co] = o_s[lv * kBpitch + co];
+    }
+  }
+}
+
+template <int NT, bool MIRROR>
+int launch_tc(const bf16* f, const int* r, const int* s, const bf16* w,
+              bf16* o, int V, int cin, int cout, int kp, cudaStream_t st) {
+  static bool granted = false;  // per instance
+  const int smem = tc_smem_bytes(16 * NT);
+  if (!granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        subm_conv_tc_kernel<NT, MIRROR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = true;
+  }
+  subm_conv_tc_kernel<NT, MIRROR>
+      <<<(V + kTileM - 1) / kTileM, kThreads, smem, st>>>(f, r, s, w, o, V,
+                                                         cin, cout, kp);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K1. feats (V, cin), weight (27, cin, cout) and out (V, cout) are float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1), contiguous; ranks and sel are
-// int32 (V*9). Launches on `stream` and returns cudaGetLastError().
-extern "C" int mopa_subm_conv_fwd(const void* feats, const void* ranks,
+// K1 and K2 d_feats on the float32 route. mirror = 0 (K1): feats (V, cin),
+// weight (27, cin, cout), out (V, cout). mirror = 1 (d_feats): feats is the
+// cotangent g (V, cin) with cin = the forward's Cout, weight the FORWARD
+// weight (27, cout, cin), out d_feats (V, cout). All float32, contiguous;
+// ranks and sel int32 (V*9). Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int mopa_subm_conv_f32(const void* feats, const void* ranks,
                                   const void* sel, const void* weight,
                                   void* out, int V, int cin, int cout,
-                                  int is_bf16, void* stream) {
-  return run(feats, ranks, sel, weight, out, V, cin, cout, is_bf16, 0,
-             stream);
+                                  int mirror, void* stream) {
+  return run_f32(feats, ranks, sel, weight, out, V, cin, cout, mirror,
+                 stream);
 }
 
-// K2, d_feats half: d_feats (V, cin) = the windowed conv of g (V, cout) with
-// W'[k] = weight[26 - k]^T, where weight is the FORWARD weight (27, cin,
-// cout). Types and layout as mopa_subm_conv_fwd.
-extern "C" int mopa_subm_conv_bwd_dfeats(const void* g, const void* ranks,
-                                         const void* sel, const void* weight,
-                                         void* d_feats, int V, int cin,
-                                         int cout, int is_bf16, void* stream) {
-  return run(g, ranks, sel, weight, d_feats, V, cout, cin, is_bf16, 1,
-             stream);
+// K1 and K2 d_feats on the bfloat16 tensor-core route; arguments as
+// mopa_subm_conv_f32's, in bfloat16, plus the tile shape: kp a multiple of
+// 32 and >= 3*cin, np one of 16, 32, 48, 64, 96, 128, 192 and >= cout.
+extern "C" int mopa_subm_conv_tc(const void* feats, const void* ranks,
+                                 const void* sel, const void* weight,
+                                 void* out, int V, int cin, int cout,
+                                 int mirror, int kp, int np, void* stream) {
+  if (V <= 0) return 0;
+  if (cin < 1 || cout < 1 || cout > np || kp % kKC != 0 || kp < 3 * cin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* f = static_cast<const bf16*>(feats);
+  const int* r = static_cast<const int*>(ranks);
+  const int* s = static_cast<const int*>(sel);
+  const bf16* w = static_cast<const bf16*>(weight);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (np) {
+#define MOPA_CASE(NT)                                                      \
+    case 16 * NT:                                                          \
+      return mirror ? launch_tc<NT, true>(f, r, s, w, o, V, cin, cout, kp,  \
+                                          st)                              \
+                    : launch_tc<NT, false>(f, r, s, w, o, V, cin, cout,    \
+                                           kp, st);
+    MOPA_CASE(1) MOPA_CASE(2) MOPA_CASE(3) MOPA_CASE(4) MOPA_CASE(6)
+    MOPA_CASE(8) MOPA_CASE(12)
+#undef MOPA_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -8,15 +8,26 @@ CUDA kernels.
   the cotangent with the mirrored, transposed weight), and ``d_w`` is a
   reduction kernel of its own with a deterministic second pass.
 
+Each has two routes, chosen by the dtype (:func:`route_for`):
+
+* ``cuda-tensorcore`` for bfloat16, the train step's, the EMA teacher's and
+  eval's: a wide-column gather by ``cp.async`` feeding ``mma.sync`` tensor-
+  core GEMMs, the gather of the next stages in flight while the current one
+  multiplies. K1 and ``d_feats`` read the forward weight in place
+  (``d_feats`` as W'[k] = W[26-k]^T, through ``ldmatrix``'s transpose);
+* ``cuda`` for float32, which only the checking paths use: CUDA-core FMA
+  loops, so float32 stays within 1e-4 of the plain twins (TF32 would not).
+
 The sources are ``mopa_tpu_torch/csrc/submanifold_conv.cu`` (K1, K2
-``d_feats``) and ``csrc/submanifold_conv_dw.cu`` (K2 ``d_w``); their headers
-say what bounds each kernel on the card and how the design answers it.
+``d_feats``) and ``csrc/submanifold_conv_dw.cu`` (K2 ``d_w``), with the
+tensor-core building blocks in ``csrc/tensor_core.cuh``; their headers say
+what bounds each kernel on the card and how the design answers it.
 
 Every CUDA source of the port (these two and ``csrc/gather_micro.cu``, the
 gather probes of ``ops/gather.py``) is compiled for ``sm_90a`` by ``nvcc`` at
 first use into ``mopa_tpu_torch/_build/`` by :func:`build` (named by the
-source's hash; the compilers run in parallel), loaded with ``ctypes`` and
-launched on PyTorch's current stream.
+hash of the source and the headers; the compilers run in parallel), loaded
+with ``ctypes`` and launched on PyTorch's current stream.
 Nothing here imports a CUDA toolchain at module import, and nothing falls
 back: a missing ``nvcc``, a failed build or a failed launch raises.
 """
@@ -36,10 +47,11 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"conv": _PKG / "csrc" / "submanifold_conv.cu",
            "dw": _PKG / "csrc" / "submanifold_conv_dw.cu",
            "gather": _PKG / "csrc" / "gather_micro.cu"}
+HEADERS = (_PKG / "csrc" / "tensor_core.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-COUT_MAX = 192  # the register tiles' widest output width (csrc kCoutMax)
+COUT_MAX = 192  # the widest output width either route holds (csrc kCoutMax)
 
 K1 = "K1 submanifold_conv_fwd"
 K2_DFEATS = "K2 submanifold_conv_bwd_dfeats"
@@ -47,10 +59,27 @@ K2_DW = "K2 submanifold_conv_bwd_dw"
 P1 = "P1 row_gather"    # ops/gather.py
 P2 = "P2 gather_gemm"   # ops/gather.py
 
+TENSOR_CORE = "cuda-tensorcore"
+CUDA_CORE = "cuda"
+
+# The tensor-core kernels' tiling (csrc kTileM, kKC / kKV, the template
+# instances): voxels per conv CTA, K rows per pipeline stage, and the
+# 16-wide output blocks a warp may hold.
+TILE_M = 128
+K_STAGE = 32
+NT_CHOICES = (1, 2, 3, 4, 6, 8, 12)
+# d_w splits its voxel sum into ranges of about this many rows, at most
+# this many ranges, so the summation order is a function of V alone.
+ROWS_PER_RANGE = 2048
+MAX_RANGES = 128
+
 # Launch count of every kernel of the port; only the kernels' wrappers (below
 # and in ops/gather.py) add to it, once per launch, so a caller can show
-# which path a run went through.
+# which path a run went through. ``routes`` splits the conv kernels' counts
+# by route.
 launches = {K1: 0, K2_DFEATS: 0, K2_DW: 0, P1: 0, P2: 0}
+routes = {name: {TENSOR_CORE: 0, CUDA_CORE: 0}
+          for name in (K1, K2_DFEATS, K2_DW)}
 
 _libs: dict | None = None
 
@@ -58,6 +87,9 @@ _libs: dict | None = None
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+    for counts in routes.values():
+        for route in counts:
+            counts[route] = 0
 
 
 def _nvcc() -> str:
@@ -74,8 +106,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = SOURCES[name]
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / "lib{}_{}.so".format(src.stem, tag)
+    h = hashlib.sha256(src.read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
+    return BUILD_DIR / "lib{}_{}.so".format(src.stem, h.hexdigest()[:16])
 
 
 def build() -> dict:
@@ -111,22 +145,76 @@ def build() -> dict:
         raise RuntimeError("\n".join(failed))
     libs = {name: ctypes.CDLL(str(library_path(name))) for name in SOURCES}
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    for fn in (libs["conv"].mopa_subm_conv_fwd,
-               libs["conv"].mopa_subm_conv_bwd_dfeats):
-        fn.argtypes = [ptr] * 5 + [cint] * 4 + [ptr]
-        fn.restype = cint
-    libs["dw"].mopa_subm_conv_bwd_dw.argtypes = [ptr] * 6 + [cint] * 4 \
-        + [ptr]
-    libs["dw"].mopa_subm_conv_bwd_dw.restype = cint
-    libs["dw"].mopa_subm_conv_dw_ranges.argtypes = [cint]
-    libs["dw"].mopa_subm_conv_dw_ranges.restype = cint
-    libs["gather"].mopa_row_gather.argtypes = [ptr] * 3 + [cint] * 4 + [ptr]
-    libs["gather"].mopa_gather_gemm.argtypes = [ptr] * 4 + [cint] * 5 + [ptr]
-    for fn in (libs["gather"].mopa_row_gather,
-               libs["gather"].mopa_gather_gemm):
+    for fn, args in (
+            (libs["conv"].mopa_subm_conv_f32, [ptr] * 5 + [cint] * 4),
+            (libs["conv"].mopa_subm_conv_tc, [ptr] * 5 + [cint] * 6),
+            (libs["dw"].mopa_subm_conv_dw_f32, [ptr] * 6 + [cint] * 5),
+            (libs["dw"].mopa_subm_conv_dw_tc, [ptr] * 6 + [cint] * 7),
+            (libs["gather"].mopa_row_gather, [ptr] * 3 + [cint] * 4),
+            (libs["gather"].mopa_gather_gemm, [ptr] * 4 + [cint] * 5)):
+        fn.argtypes = args + [ptr]  # the stream last
         fn.restype = cint
     _libs = libs
     return libs
+
+
+def route_for(dtype: torch.dtype) -> str:
+    """The kernel route of a conv kernel's inputs: bfloat16 runs on the
+    tensor cores, float32 on the CUDA cores."""
+    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _nt(blocks16: int) -> int:
+    """The smallest instantiated count of 16-wide blocks >= blocks16."""
+    return next(nt for nt in NT_CHOICES if nt >= blocks16)
+
+
+def conv_tile_shape(cin: int, cout: int) -> tuple[int, int]:
+    """(KP, NP) of the tensor-core conv kernel for Cin -> Cout: a column's
+    K = 3*Cin rounded up to :data:`K_STAGE` (the kernel stages zeros past
+    3*Cin), and Cout rounded up to 16 * an instantiated block count (the
+    kernel's register tile)."""
+    return _cdiv(3 * cin, K_STAGE) * K_STAGE, 16 * _nt(_cdiv(cout, 16))
+
+
+def tile_columns(ranks: torch.Tensor, sel: torch.Tensor,
+                 v: int) -> torch.Tensor:
+    """(ceil(V / TILE_M), 9) bool: the columns the tensor-core conv kernel
+    stages for each tile of :data:`TILE_M` voxels, i.e. those in which some
+    voxel of the tile has a row in [0, V) with a dz code < 3 (the kernel
+    finds them itself; this is their count on the host)."""
+    r = ranks.reshape(v, 9).long()
+    codes = sel.reshape(v, 9)
+    has = torch.zeros((v, 9), dtype=torch.bool, device=ranks.device)
+    for j in range(3):
+        has |= (((codes >> (2 * j)) & 3) != 3) & (r + j >= 0) & (r + j < v)
+    n = _cdiv(v, TILE_M)
+    has = torch.cat([has, has.new_zeros((n * TILE_M - v, 9))])
+    return has.reshape(n, TILE_M, 9).any(dim=1)
+
+
+def dw_ranges(v: int) -> tuple[int, int]:
+    """(ranges, rows per range) that ``d_w`` splits V voxel rows into: about
+    :data:`ROWS_PER_RANGE` rows each, at most :data:`MAX_RANGES`, rows a
+    multiple of :data:`K_STAGE`; range r holds rows [r*rows, (r+1)*rows)."""
+    n = min(MAX_RANGES, max(1, _cdiv(v, ROWS_PER_RANGE)))
+    rows = _cdiv(_cdiv(max(v, 1), n), K_STAGE) * K_STAGE
+    return max(1, _cdiv(v, rows)), rows
+
+
+def dw_tiling(cin: int, cout: int) -> tuple[int, int]:
+    """(wm, nt) of the tensor-core ``d_w`` CTA tile: wm warps of 16 channel
+    rows (1, 2 or 4; fewer where Cin is narrow, or where 3*Cout would need
+    more than 12 blocks a warp) by 8/wm warps of nt 16-wide blocks over
+    3*Cout."""
+    wm = 1 if cin <= 16 else 2 if cin <= 32 else 4
+    while _cdiv(_cdiv(3 * cout, 16), 8 // wm) > NT_CHOICES[-1]:
+        wm //= 2
+    return wm, _nt(_cdiv(_cdiv(3 * cout, 16), 8 // wm))
 
 
 def _check_plan(ranks: torch.Tensor, sel: torch.Tensor, v: int,
@@ -138,10 +226,14 @@ def _check_plan(ranks: torch.Tensor, sel: torch.Tensor, v: int,
                 name, v * 9, device))
 
 
-def _check_rows(x: torch.Tensor, what: str) -> None:
+def _require_cuda(x: torch.Tensor, what: str) -> None:
     if not x.is_cuda:
         raise ValueError("{} takes CUDA tensors; got {}".format(what,
                                                                x.device))
+
+
+def _check_rows(x: torch.Tensor, what: str) -> None:
+    _require_cuda(x, what)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("{} takes float32 or bfloat16 rows, got {}".format(
             what, x.dtype))
@@ -165,6 +257,42 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _launch(kernel: str, route: str, fn, device, *args) -> None:
+    """Call the library function ``fn`` with tensors passed as pointers and
+    the current stream last; raise on a CUDA error, else count the launch."""
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    with torch.cuda.device(device):
+        err = fn(*c_args, _stream(device))
+    if err != 0:
+        raise RuntimeError("{} ({}) launch failed with CUDA error {}".format(
+            kernel, route, err))
+    launches[kernel] += 1
+    routes[kernel][route] += 1
+
+
+def _conv(kernel: str, rows: torch.Tensor, ranks: torch.Tensor,
+          sel: torch.Tensor, weight: torch.Tensor, out_width: int,
+          mirror: bool) -> torch.Tensor:
+    """K1 (mirror False, weight (27, Cin, Cout)) or K2 ``d_feats`` (mirror
+    True, the forward weight (27, Cout_in, Cin_in) read as W') on ``rows``
+    (V, Cin) -> (V, out_width)."""
+    v, cin = rows.shape
+    out = torch.empty((v, out_width), dtype=rows.dtype, device=rows.device)
+    if v == 0:
+        return out
+    route = route_for(rows.dtype)
+    lib = build()["conv"]
+    if route == TENSOR_CORE:
+        _launch(kernel, route, lib.mopa_subm_conv_tc, rows.device, rows,
+                ranks, sel, weight, out, v, cin, out_width, int(mirror),
+                *conv_tile_shape(cin, out_width))
+    else:
+        _launch(kernel, route, lib.mopa_subm_conv_f32, rows.device, rows,
+                ranks, sel, weight, out, v, cin, out_width, int(mirror))
+    return out
+
+
 def submanifold_conv_wide_cuda(feats: torch.Tensor, ranks: torch.Tensor,
                                sel: torch.Tensor,
                                weight: torch.Tensor) -> torch.Tensor:
@@ -186,19 +314,7 @@ def submanifold_conv_wide_cuda(feats: torch.Tensor, ranks: torch.Tensor,
             COUT_MAX, cout))
     _check_weight(weight, cin, cout, feats)
     _check_plan(ranks, sel, v, feats.device)
-    out = torch.empty((v, cout), dtype=feats.dtype, device=feats.device)
-    if v == 0:
-        return out
-    lib = build()["conv"]
-    with torch.cuda.device(feats.device):
-        err = lib.mopa_subm_conv_fwd(
-            feats.data_ptr(), ranks.data_ptr(), sel.data_ptr(),
-            weight.data_ptr(), out.data_ptr(), v, cin, cout,
-            int(feats.dtype == torch.bfloat16), _stream(feats.device))
-    if err != 0:
-        raise RuntimeError("K1 launch failed with CUDA error {}".format(err))
-    launches[K1] += 1
-    return out
+    return _conv(K1, feats, ranks, sel, weight, cout, mirror=False)
 
 
 def submanifold_conv_wide_bwd_dfeats_cuda(g: torch.Tensor,
@@ -207,9 +323,9 @@ def submanifold_conv_wide_bwd_dfeats_cuda(g: torch.Tensor,
                                           weight: torch.Tensor
                                           ) -> torch.Tensor:
     """K2's ``d_feats``: the windowed conv of the cotangent ``g`` (V, Cout)
-    with ``weight[::-1].transpose(1, 2)``, read in place from the FORWARD
-    weight (27, Cin, Cout) (Cin <= 192), in the cotangent's dtype. Returns
-    (V, Cin) in that dtype, accumulated in float32."""
+    with ``weight[::-1].transpose(1, 2)``, from the FORWARD weight (27, Cin,
+    Cout) (Cin <= 192), in the cotangent's dtype. Returns (V, Cin) in that
+    dtype, accumulated in float32."""
     _check_rows(g, "K2 d_feats")
     v, cout = g.shape
     if weight.dim() != 3 or weight.shape[0] != 27 or weight.shape[2] != cout:
@@ -221,20 +337,7 @@ def submanifold_conv_wide_bwd_dfeats_cuda(g: torch.Tensor,
             COUT_MAX, cin))
     _check_weight(weight, cin, cout, g)
     _check_plan(ranks, sel, v, g.device)
-    out = torch.empty((v, cin), dtype=g.dtype, device=g.device)
-    if v == 0:
-        return out
-    lib = build()["conv"]
-    with torch.cuda.device(g.device):
-        err = lib.mopa_subm_conv_bwd_dfeats(
-            g.data_ptr(), ranks.data_ptr(), sel.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), v, cin, cout, int(g.dtype == torch.bfloat16),
-            _stream(g.device))
-    if err != 0:
-        raise RuntimeError("K2 d_feats launch failed with CUDA error {}"
-                           .format(err))
-    launches[K2_DFEATS] += 1
-    return out
+    return _conv(K2_DFEATS, g, ranks, sel, weight, cin, mirror=True)
 
 
 def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
@@ -242,8 +345,9 @@ def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
                                       sel: torch.Tensor) -> torch.Tensor:
     """K2's ``d_w`` (27, Cin, Cout) float32 from the cotangent ``g`` (V, Cout)
     and the forward input ``feats`` (V, Cin), both in one dtype (float32 or
-    bfloat16) on a CUDA device, Cout <= 192. Reduced without atomics: the
-    same inputs give the same bits."""
+    bfloat16) on a CUDA device, Cout <= 192. Reduced without atomics over
+    the voxel ranges of :func:`dw_ranges`: the same inputs give the same
+    bits."""
     _check_rows(g, "K2 d_w")
     _check_rows(feats, "K2 d_w")
     v, cout = g.shape
@@ -256,18 +360,18 @@ def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
         raise ValueError("K2 d_w supports 1 <= Cout <= {}, got {}".format(
             COUT_MAX, cout))
     _check_plan(ranks, sel, v, g.device)
-    libs = build()
-    ranges = libs["dw"].mopa_subm_conv_dw_ranges(v)
-    partial = torch.empty((ranges, 27, cin, cout), dtype=torch.float32,
+    ranges, rows = dw_ranges(v)
+    # per-range column blocks (ranges, 9, Cin, 3*Cout), both routes
+    partial = torch.empty((ranges, 9, cin, 3 * cout), dtype=torch.float32,
                           device=g.device)
     out = torch.empty((27, cin, cout), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        err = libs["dw"].mopa_subm_conv_bwd_dw(
-            feats.data_ptr(), g.data_ptr(), ranks.data_ptr(), sel.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), v, cin, cout,
-            int(g.dtype == torch.bfloat16), _stream(g.device))
-    if err != 0:
-        raise RuntimeError("K2 d_w launch failed with CUDA error {}".format(
-            err))
-    launches[K2_DW] += 1
+    route = route_for(g.dtype)
+    lib = build()["dw"]
+    if route == TENSOR_CORE:
+        _launch(K2_DW, route, lib.mopa_subm_conv_dw_tc, g.device, feats, g,
+                ranks, sel, partial, out, v, cin, cout, ranges, rows,
+                *dw_tiling(cin, cout))
+    else:
+        _launch(K2_DW, route, lib.mopa_subm_conv_dw_f32, g.device, feats, g,
+                ranks, sel, partial, out, v, cin, cout, ranges, rows)
     return out
