@@ -8,16 +8,22 @@ Phases, in order; any failure exits non-zero:
 1. Build the kernels (``mopa_tpu_torch/csrc/*.cu``, one nvcc per source, in
    parallel, for sm_90a, into ``mopa_tpu_torch/_build/``); print the card's
    name and power limit, the build seconds and the compiler's register/spill
-   report. Per kernel of the two conv libraries, the registers and spills
-   (ptxas) and the tensor-core MMA instructions (``HMMA``/``HGMMA`` in
-   ``cuobjdump -sass``): every tensor-core kernel must hold MMAs and spill
-   nothing.
+   report. Per kernel of the three libraries, the registers, spills and
+   stack frame (ptxas) and the tensor-core MMA instructions (``HMMA``/
+   ``HGMMA`` in ``cuobjdump -sass``): every tensor-core kernel (K1 and
+   ``d_feats``, ``d_w``, P2) must hold MMAs and spill nothing.
 2. The gather probes at full size (``mopa_tpu_torch.tools.gather_micro``:
    24 x 16,384 slots, 48 bf16 lanes, 8 taps, Cout 16), with launch counts
    reset just before and read just after: P1 ``row_gather`` must equal its
    plain twin bit for bit, P2 ``gather_gemm`` be within max|err| <= 2e-2 *
    max|ref| of its twin; their times, their twins', the library calls'
-   (``index_select``; indexing then ``matmul``) and their bounds.
+   (``index_select``; indexing then ``matmul``) and their bounds, and the
+   tiles P2 reads by its fallback. Then P2's edge cases, one launch each,
+   under the same rule: the probe's ranks shuffled within each sample
+   (every tile by the fallback), M not a multiple of the tile, D = 8 and
+   128, out-of-range ranks in window and in fallback tiles (against the
+   twin on a zero-row-padded table). Last, P2's device time per launch from a
+   ``torch.profiler`` trace of 20 launches at the probe's shape.
 3. Hold each conv kernel against its plain PyTorch twin on the card at every
    (Cin, Cout) of the SCN UNet's 14 submanifold convs: K1 (forward) on the
    plans of one and of eight seeded 16,384-point synthetic scans and on the
@@ -318,9 +324,10 @@ def tensor_core_routes(tag: str) -> dict:
     return routes
 
 
-# a conv library's kernel and its template arguments (int, then an
+# a kernel of the three libraries and its template arguments (int, then an
 # optional bool) in a mangled name
-_KERNEL_NAME = re.compile(r"(subm_conv_(?:dw_)?(?:(?:f32|tc)_kernel|reduce))"
+_KERNEL_NAME = re.compile(r"(subm_conv_(?:dw_)?(?:(?:f32|tc)_kernel|reduce)"
+                          r"|row_gather_kernel|gather_gemm_tc_kernel)"
                           r"(?:ILi(\d+)E(?:Lb([01])E)?)?")
 
 
@@ -346,16 +353,18 @@ def _cuobjdump() -> str:
     fail("cuobjdump not found (CUDA toolkit or triton's copy)")
 
 
-def conv_kernel_report() -> dict:
-    """Per kernel of the two conv libraries: registers and spilled bytes
-    (ptxas's report, kept beside each library) and the tensor-core MMA
-    instructions (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``).
-    Fails if a tensor-core kernel holds no MMA or spills."""
+def kernel_report() -> dict:
+    """Per kernel of the three libraries (the conv, ``d_w`` and gather
+    sources): registers, spilled bytes and stack frame (ptxas's report, kept
+    beside each library) and the tensor-core MMA instructions
+    (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``). Fails if a
+    tensor-core kernel (K1 and ``d_feats``, ``d_w``, P2) holds no MMA or
+    spills."""
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
 
     tool = _cuobjdump()
     report = {}
-    for lib in ("conv", "dw"):
+    for lib in scc.SOURCES:
         so = scc.library_path(lib)
         kernels = {}
         cur = None
@@ -372,6 +381,9 @@ def conv_kernel_report() -> dict:
             if m:
                 kernels.setdefault(cur, {})["spill_bytes"] = \
                     int(m.group(1)) + int(m.group(2))
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if m:
+                kernels.setdefault(cur, {})["stack_bytes"] = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 kernels.setdefault(cur, {})["registers"] = int(m.group(1))
@@ -898,9 +910,125 @@ def train_phase(batches, device, with_ema: bool = False) -> dict:
     return report
 
 
+def p2_inputs(s: int, v: int, m: int, d: int, seed: int, device,
+              shuffled: bool = False):
+    """Seeded P2 inputs on the card: a normal (s, v, d) bf16 table, ranks
+    (s, 8m) in [0, v) sorted per sample (or in random order), a normal
+    (8d, 16) bf16 weight."""
+    import torch
+
+    from mopa_tpu_torch.ops import gather
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    tab = torch.randn((s, v, d), generator=g, device=device).to(
+        torch.bfloat16)
+    idx = torch.randint(0, v, (s, gather.TAPS * m), generator=g,
+                        device=device, dtype=torch.int32)
+    if shuffled:
+        keys = torch.rand(idx.shape, generator=g, device=device)
+        idx = torch.gather(idx, 1, torch.argsort(keys, dim=1))
+    else:
+        idx = torch.sort(idx, dim=1).values
+    w = torch.randn((gather.TAPS * d, gather.COUT), generator=g,
+                    device=device).to(torch.bfloat16)
+    return tab, idx.contiguous(), w
+
+
+def fallback_tiles(idx, v: int) -> dict:
+    """The tiles P2 reads by its fallback (their span exceeds the window),
+    counted on the host by the kernel's rule (``gather.tile_windows``), once
+    the built kernel's tiling is found to be the one ``gather`` mirrors."""
+    import ctypes
+
+    from mopa_tpu_torch.ops import gather
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+
+    tile_m, window_rows = ctypes.c_int(), ctypes.c_int()
+    scc.build()["gather"].mopa_gather_gemm_tiling(ctypes.byref(tile_m),
+                                                  ctypes.byref(window_rows))
+    if (tile_m.value, window_rows.value) != (gather.TILE_M,
+                                             gather.WINDOW_ROWS):
+        fail("P2's kernel tiles {} rows with {}-row windows; ops/gather.py "
+             "mirrors {} and {}".format(tile_m.value, window_rows.value,
+                                        gather.TILE_M, gather.WINDOW_ROWS))
+    fits = gather.tile_windows(idx, v)[2]
+    return {"tiles": fits.numel(), "fallback": int((~fits).sum())}
+
+
+def p2_edge_cases(device) -> list:
+    """P2 beyond the probe's own data, each case one launch held to its
+    plain twin by the bf16 rule: the probe's shape with its ranks shuffled
+    within each sample (every tile takes the fallback), M not a multiple of
+    the tile, D = 8 (K padded) and D = 128, and out-of-range ranks (against
+    the twin on the table with a zero row appended), sorted (window tiles)
+    and shuffled (fallback tiles)."""
+    import torch
+
+    from mopa_tpu_torch.ops import gather
+    from mopa_tpu_torch.tools import gather_micro as gm
+
+    tab, idx, w = gm.make_inputs(device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    keys = torch.rand(idx.shape, generator=g, device=device)
+    cases = [("probe shape, shuffled ranks", True, False,
+              (tab, torch.gather(idx, 1, torch.argsort(keys, dim=1))
+               .contiguous(), w))]
+    del tab, idx, w
+    for name, shape, shuffled, bad_ranks in (
+            ("M = 1000, ragged last tile", (3, 1000, 1000, 48), False, False),
+            ("D = 8 (K padded)", (4, 16384, 16384, 8), False, False),
+            ("D = 24, ragged, shuffled", (3, 2000, 700, 24), True, False),
+            ("D = 128", (4, 16384, 16384, 128), False, False),
+            ("out-of-range ranks", (4, 16384, 16384, 48), False, True),
+            ("out-of-range ranks, shuffled", (2, 4096, 4096, 48), True,
+             True)):
+        cases.append((name, shuffled, bad_ranks,
+                      p2_inputs(*shape, seed=len(cases), device=device,
+                                shuffled=shuffled)))
+    rows = []
+    for name, shuffled, bad_ranks, (tab, idx, w) in cases:
+        s, v, d = tab.shape
+        ref_tab, ref_idx = tab, idx
+        if bad_ranks:
+            g = torch.Generator(device=device).manual_seed(7)
+            hit = torch.rand(idx.shape, generator=g, device=device) < 0.01
+            bad = torch.randint(-8, 8, idx.shape, generator=g, device=device,
+                                dtype=torch.int32)
+            bad = torch.where(bad < 0, bad, bad + v)  # [-8, 0) or [v, v + 8)
+            idx = torch.where(hit, bad, idx).contiguous()
+            ref_tab = torch.cat([tab, tab.new_zeros((s, 1, d))], dim=1)
+            ref_idx = torch.where(hit, torch.full_like(idx, v), idx)
+        got = gather.gather_gemm(tab, idx, w)
+        ref = gather.gather_gemm_plain(ref_tab, ref_idx, w)
+        torch.cuda.synchronize()
+        row = {"case": name, "S": s, "V": v, "M": idx.shape[1] // gather.TAPS,
+               "D": d, **fallback_tiles(idx, v),
+               "max_abs_err": float((got.float() - ref.float()).abs().max()),
+               "max_abs_ref": float(ref.float().abs().max()),
+               "finite": bool(torch.isfinite(got.float()).all())}
+        rows.append(row)
+        n_bad = int(((idx < 0) | (idx >= v)).sum())
+        print("P2 edge case {case} (S {S}, V {V}, M {M}, D {D}): fallback "
+              "tiles {fallback}/{tiles}, out-of-range ranks {bad}, max|err| "
+              "{max_abs_err:.3g} (max|ref| {max_abs_ref:.3g})".format(
+                  bad=n_bad, **row), flush=True)
+        if not (row["finite"]
+                and row["max_abs_err"] <= 2e-2 * row["max_abs_ref"]):
+            fail("P2 disagrees with its plain twin at {}: {}".format(name,
+                                                                     row))
+        if shuffled and row["fallback"] != row["tiles"]:
+            fail("P2 edge case {}: not every tile took the fallback".format(
+                name))
+        if bad_ranks and not n_bad:
+            fail("P2 edge case {}: no out-of-range rank".format(name))
+        del tab, idx, w, got, ref, ref_tab, ref_idx
+    return rows
+
+
 def gather_phase(device) -> dict:
     """Phase 2: the port's gather probe at full size; P1 bit-exact against
-    its twin, P2 within the bf16 rule; exact launch counts."""
+    its twin, P2 within the bf16 rule; exact launch counts. Then P2's edge
+    cases (one launch each)."""
     import math
 
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
@@ -916,6 +1044,10 @@ def gather_phase(device) -> dict:
     res["launches"] = launches
     for line in gm.report_lines(res):
         print(line, flush=True)
+    res["fused"].update(fallback_tiles(gm.make_inputs(device=device)[1],
+                                       gm.V))
+    print("P2 probe: fallback tiles {fallback}/{tiles}".format(
+        **res["fused"]), flush=True)
     if not res["gather"]["bit_exact"]:
         fail("P1 differs from its plain twin: max|err| {}".format(
             res["gather"]["max_abs_err"]))
@@ -926,6 +1058,38 @@ def gather_phase(device) -> dict:
              .format(fused["max_abs_err"], fused["max_abs_ref"]))
     if not all(math.isfinite(res[k]["checksum"]) for k in ("gather", "fused")):
         fail("gather probe checksums are not finite")
+    res["p2_edge_cases"] = p2_edge_cases(device)
+    want[P2] += len(res["p2_edge_cases"])
+    fused["traced"] = p2_traced(device)
+    want[P2] += TIMED_LAUNCHES
+    if scc.launches != want:
+        fail("P2's edge cases and trace launched {}, expected {}".format(
+            dict(scc.launches), want))
+    return res
+
+
+def p2_traced(device) -> dict:
+    """P2's device time per launch at the probe's shape from a
+    ``torch.profiler`` trace of ``TIMED_LAUNCHES`` launches in a row: the
+    kernel's own duration on the card, beside the probe's CUDA-event time
+    of single calls, which holds the host's enqueue of each call too."""
+    from mopa_tpu_torch.ops import gather
+    from mopa_tpu_torch.tools import gather_micro as gm
+
+    tab, idx, w = gm.make_inputs(device=device)
+    traced = profile_call(lambda: [gather.gather_gemm(tab, idx, w)
+                                   for _ in range(TIMED_LAUNCHES)], ())
+    ms = [t for name, t in traced.get("top_device_ms", [])
+          if "gather_gemm_tc_kernel" in name]
+    res = {"launches": TIMED_LAUNCHES,
+           "device_ms_per_launch": sum(ms) / TIMED_LAUNCHES if ms
+           else "not measured (no P2 kernel in the trace)",
+           "wall_ms": traced.get("wall_ms"),
+           "device_idle_share": traced.get("device_idle_share")}
+    print("P2 traced: {} launches in a row, device ms per launch {}, wall "
+          "{} ms, device idle share {}".format(
+              TIMED_LAUNCHES, res["device_ms_per_launch"], res["wall_ms"],
+              res["device_idle_share"]), flush=True)
     return res
 
 
@@ -982,9 +1146,9 @@ def main() -> None:
         len(scc.SOURCES), report["build_s"]))
     for text in report["ptxas"].values():
         print(text.strip())
-    report["conv_kernels"] = conv_kernel_report()
-    print("conv kernels (registers, spilled bytes, tensor-core MMA "
-          "instructions): {}".format(report["conv_kernels"]), flush=True)
+    report["kernel_build"] = kernel_report()
+    print("kernels (registers, spilled bytes, stack frame, tensor-core MMA "
+          "instructions): {}".format(report["kernel_build"]), flush=True)
 
     # -- data: 3 single-scan requests, one batch of 8 scans, and the fused
     # 8 + 8 scan plan of a train step (source and target BN domains)

@@ -1,8 +1,8 @@
 // Building blocks of the port's tensor-core kernels (sm_90a): asynchronous
 // 16-byte global -> shared copies (cp.async, zero-filled when the source is
 // absent), ldmatrix fragment loads and the bf16 mma.sync m16n8k16 with
-// float32 accumulation. Included by submanifold_conv.cu and
-// submanifold_conv_dw.cu.
+// float32 accumulation. Included by submanifold_conv.cu,
+// submanifold_conv_dw.cu and gather_micro.cu.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane = 4 * g + q.
 //   A (16 x 16, row-major): a0 = A[g][2q..2q+1], a1 = A[g+8][2q..],

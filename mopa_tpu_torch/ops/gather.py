@@ -13,6 +13,13 @@ The kernels are ``mopa_tpu_torch/csrc/gather_micro.cu``, built with the
 sparse-conv kernels by ``sparse_conv_cuda.build``, and count their launches
 in ``sparse_conv_cuda.launches``. A wrapper takes its twin only for CPU
 tensors; for CUDA tensors it launches the kernel or raises.
+
+P2 runs on the tensor cores over :data:`TILE_M`-row output tiles. A tile
+whose in-range ranks span fewer than :data:`WINDOW_ROWS` table rows reads
+its rows from a shared-memory window of the table; any other tile gathers
+them from global memory (the fallback). :func:`tile_windows` gives that
+choice per tile on the host. The two constants mirror the kernel's
+(``mopa_gather_gemm_tiling`` in the built library reports them).
 """
 
 from __future__ import annotations
@@ -25,6 +32,33 @@ from mopa_tpu_torch.ops.sparse_conv_cuda import P1, P2
 TAPS = 8      # wide columns per output row of P2
 COUT = 16     # P2's output width (the kernel's register tile)
 D_MAX = 128   # P2's widest table row
+# P2's tiling (csrc kTileM, kWindowRows): output rows per tile, table rows a
+# window holds.
+TILE_M = 64
+WINDOW_ROWS = 128
+
+
+def tile_windows(idx: torch.Tensor, v: int,
+                 window_rows: int = WINDOW_ROWS):
+    """P2's per-tile choice on ranks ``idx`` (S, TAPS*M) into a V-row table.
+
+    Returns (lo, hi, fits), each (S, ceil(M / TILE_M)): the least and the
+    largest rank in [0, V) of the tile's TILE_M output rows (hi < lo when it
+    has none), and whether the kernel reads the tile from a window of table
+    rows [lo, hi] (hi - lo < window_rows, or no rank in range) rather than
+    by the fallback."""
+    s = idx.shape[0]
+    m = idx.shape[1] // TAPS
+    n = -(-m // TILE_M)
+    r = idx.reshape(s, m * TAPS).long()
+    pad = n * TILE_M * TAPS - m * TAPS
+    r = torch.cat([r, r.new_full((s, pad), -1)], dim=1).reshape(s, n, -1)
+    ok = (r >= 0) & (r < v)
+    big = torch.iinfo(torch.int32).max
+    lo = torch.where(ok, r, r.new_full((), big)).amin(dim=2)
+    hi = torch.where(ok, r, r.new_full((), -big - 1)).amax(dim=2)
+    fits = (hi < lo) | (hi - lo < window_rows)
+    return lo, hi, fits
 
 
 def row_gather_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -81,19 +115,22 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_gemm(tab: torch.Tensor, idx: torch.Tensor,
                 w: torch.Tensor) -> torch.Tensor:
     """P2 on a CUDA ``tab`` (S, V, D) bfloat16 (D a multiple of 8, at most
-    128), int32 ``idx`` (S, TAPS*M) in [0, V) and a bfloat16 ``w``
-    (TAPS*D, 16); the twin on CPU tensors. Returns (S, M, 16) bfloat16."""
+    128), int32 ``idx`` (S, TAPS*M) (16-byte aligned; a rank outside [0, V)
+    reads a zero row) and a bfloat16 ``w`` (TAPS*D, 16); the twin on CPU
+    tensors. Returns (S, M, 16) bfloat16."""
     if not tab.is_cuda:
         return gather_gemm_plain(tab, idx, w)
     _check(tab, idx, "P2")
     s, v, d = tab.shape
-    if d > D_MAX or idx.shape[1] % TAPS:
-        raise ValueError("P2 takes D <= {} and N a multiple of {}".format(
-            D_MAX, TAPS))
+    if d > D_MAX or idx.shape[1] % TAPS or idx.data_ptr() % 16:
+        raise ValueError("P2 takes D <= {} and 16-byte aligned ranks, N a "
+                         "multiple of {}".format(D_MAX, TAPS))
     if w.shape != (TAPS * d, COUT) or w.dtype != torch.bfloat16 \
-            or not w.is_contiguous() or w.device != tab.device:
-        raise ValueError("P2 takes a contiguous ({}, {}) bfloat16 weight on "
-                         "{}".format(TAPS * d, COUT, tab.device))
+            or not w.is_contiguous() or w.device != tab.device \
+            or w.data_ptr() % 16:
+        raise ValueError("P2 takes a contiguous, 16-byte aligned ({}, {}) "
+                         "bfloat16 weight on {}".format(TAPS * d, COUT,
+                                                        tab.device))
     m = idx.shape[1] // TAPS
     out = torch.empty((s, m, COUT), dtype=tab.dtype, device=tab.device)
     lib = sparse_conv_cuda.build()["gather"]

@@ -154,6 +154,9 @@ def build() -> dict:
             (libs["gather"].mopa_gather_gemm, [ptr] * 4 + [cint] * 5)):
         fn.argtypes = args + [ptr]  # the stream last
         fn.restype = cint
+    tiling = libs["gather"].mopa_gather_gemm_tiling
+    tiling.argtypes = [ctypes.POINTER(cint)] * 2
+    tiling.restype = None
     _libs = libs
     return libs
 
