@@ -21,14 +21,15 @@ Phases, in order; any failure exits non-zero:
    tiles P2 reads by its fallback. Then P2's edge cases, one launch each,
    under the same rule: the probe's ranks shuffled within each sample
    (every tile by the fallback), M not a multiple of the tile, D = 8 and
-   128, out-of-range ranks in window and in fallback tiles (against the
-   twin on a zero-row-padded table). Last, P2's device time per launch from a
-   ``torch.profiler`` trace of 20 launches at the probe's shape.
+   128, out-of-range ranks in window and in fallback tiles (the twin reads
+   them as zero rows, as the kernel does). Last, P2's device time per launch
+   from a ``torch.profiler`` trace of 20 launches at the probe's shape.
 3. Hold each conv kernel against its plain PyTorch twin on the card at every
    (Cin, Cout) of the SCN UNet's 14 submanifold convs: K1 (forward) on the
    plans of one and of eight seeded 16,384-point synthetic scans and on the
-   fused 16-scan plan of a train step; K2 (backward: ``d_feats`` and
-   ``d_w``) on that train plan. float32 to atol = rtol = 1e-4 (``d_w``:
+   fused plan of the shipped MoPA step (8 source + 8 target scans, then the
+   8 VGI cat scans of 18,432 points); K2 (backward: ``d_feats`` and ``d_w``)
+   on that plan. float32 to atol = rtol = 1e-4 (``d_w``:
    max|err| <= 1e-4 * max|ref|), bfloat16 to max|err| <= 2e-2 * max|ref|.
    One ``d_w`` shape runs twice and must give the same bits. bfloat16 runs
    the tensor-core route, float32 the CUDA-core route (``sparse_conv_cuda.
@@ -55,7 +56,9 @@ Phases, in order; any failure exits non-zero:
    plain twins on the card, the whole port on the CPU): losses to 1e-3
    relative, every gradient to 1e-3 of its tensor's largest. Then the median
    of 5 warm bfloat16 steps, the peak memory, and one step traced by
-   ``torch.profiler`` split by ``trainer.TRAIN_STAGES``.
+   ``torch.profiler`` split by ``trainer.TRAIN_STAGES``. Then this step and
+   the same step on host-built plans (``hp_*`` keys), 5 each in turns, and
+   one traced step of each: the plan stage and the device's idle share.
 6. The EMA phase of the step at full width in bfloat16 (8 + 8 scans,
    ``ema_start_iter`` 0, the shipped ``ema_xm_prob`` 0.7; target batches
    carry the teacher's unaugmented view): 2 steps on distinct batches with
@@ -68,10 +71,28 @@ Phases, in order; any failure exits non-zero:
    one step traced by ``torch.profiler`` split by ``trainer.TEACHER_STAGES``
    and ``TRAIN_STAGES``. Then one float32 EMA step of 1 + 1 scans three ways,
    with ``ema_xm_prob`` forced to 0 and to 1: losses and gradients as in
-   phase 5, and teacher labels equal on >= 99.9 % of the valid points.
-7. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
-   and ``kernel_route`` the conv kernels' route on the main path), the card
-   line, then ``{"ok": true, "device": {...}}`` as the last line.
+   phase 5, and teacher labels equal on >= 99.9 % of the valid points. Then
+   device-built against host-built plans in turns, as in phase 5 (the
+   teacher's plan too).
+7. The shipped MoPA step (``lambda_pc_mm`` 0.1: VGI on) before the EMA
+   switch, its batches made as the reference's loader makes them: host VGI
+   inserts one object per target scan (``data.vgi_host``) and every group's
+   voxel plan is built on the host (``data.collate``: ``hp_*``,
+   ``hp_cat_*``). The host work per batch pair in milliseconds by part, the
+   capacity audit apart from the plan builder (it overlaps the step in a
+   loader, so it is reported apart from the step), the most fixups
+   a sample used against the budget, and the capacity audit (every level's
+   true voxel count within its capacity). On the card, each decoded host
+   plan equals ``build_unet_plan_batched`` on the same scans (ranks where
+   a column has a neighbour). Then the checks of phase 5 on this step (3D
+   net over 8 + 8 + 8 scans in three batch-norm domains, 389,104 level-0
+   rows), with a finite ``pc_mm_loss`` and inserted points in every step,
+   and its f32 1 + 1 + 1 step three ways.
+8. The same with the EMA teacher (as phase 6; its plan from ``hp_ori_*``).
+9. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
+   and ``kernel_route`` the conv kernels' route on the main path, whose
+   launches are phase 7's), the card line, then ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 Weights are random from a seed. Details go to ``chiprun_out/chip_smoke.json``.
 Nothing here imports JAX or the JAX package.
@@ -127,12 +148,12 @@ def card_line() -> str:
 
 
 def make_cfg(dtype: str, train: bool = False, batch_size: int = TRAIN_BATCH,
-             ema_xm_prob=None):
+             ema_xm_prob=None, vgi: bool = False):
     """The shipped a2d2_semantic_kitti/xmuda_pl_mopa.yaml model pair, in code
     (no YAML on the card's machine); with ``train`` also its optimizer,
-    schedule and loss weights, with VGI (``lambda_pc_mm``) off. With
-    ``ema_xm_prob`` the EMA phase from the first step (``ema_start_iter``
-    0) with that fusion probability."""
+    schedule, loss weights and VGI settings, with VGI (``lambda_pc_mm``
+    0.1) on only with ``vgi``. With ``ema_xm_prob`` the EMA phase from the
+    first step (``ema_start_iter`` 0) with that fusion probability."""
     from mopa_tpu_torch.config.xmuda import cfg
 
     c = cfg.clone()
@@ -162,7 +183,12 @@ def make_cfg(dtype: str, train: bool = False, batch_size: int = TRAIN_BATCH,
         c.TRAIN.XMUDA.lambda_xm_src = 0.1
         c.TRAIN.XMUDA.lambda_xm_trg = 0.01
         c.TRAIN.XMUDA.lambda_pl = 1.0
-        c.TRAIN.PC_MM.lambda_pc_mm = 0.0   # VGI: not ported yet
+        c.TRAIN.PC_MM.lambda_pc_mm = 0.1 if vgi else 0.0
+        c.TRAIN.PC_MM.z_disc = 0.3
+        c.TRAIN.PC_MM.insert_mode = "ground"
+        c.TRAIN.PC_MM.search_voxel_size = 0.5
+        c.TRAIN.PC_MM.use_proj = True
+        c.TRAIN.PC_MM.dis_range = (0, 15)
         c.TRAIN.PC_MM.lambda_sam_cons = 0.01
         c.TRAIN.PC_MM.ema_start_iter = 70000 if ema_xm_prob is None else 0
         c.TRAIN.PC_MM.ema_xm_prob = 0.7 if ema_xm_prob is None \
@@ -644,9 +670,10 @@ def eval_phase(batches_1, batch_8, device) -> dict:
 
 
 def train_batches(n: int, batch_size: int, start: int,
-                  with_ema: bool = False) -> list:
+                  with_ema: bool = False, with_vgi: bool = False) -> list:
     """``n`` (source, target) train batch pairs of ``batch_size`` scans; with
-    ``with_ema`` the targets carry the EMA teacher's view."""
+    ``with_ema`` the targets carry the EMA teacher's view, with ``with_vgi``
+    the raw VGI inputs."""
     from mopa_tpu_torch.data import synthetic
 
     out = []
@@ -655,9 +682,114 @@ def train_batches(n: int, batch_size: int, start: int,
         out.append(tuple(synthetic.train_batch(
             batch_size, POINT_BUDGET, start_index=idx, image_size=IMAGE_SIZE,
             domain=d, num_classes=NUM_CLASSES,
-            with_ema=with_ema and d == "target")
+            with_ema=with_ema and d == "target",
+            with_vgi=with_vgi and d == "target")
             for d in ("source", "target")))
     return out
+
+
+def timed_host_work(records: list):
+    """Patch ``data.collate``'s host functions to append (plan prefix,
+    "vgi" or "audit", milliseconds) to ``records`` per call. A plan's time
+    holds its samples' capacity audits (``_true_level_nums``, recorded
+    first), host VGI's holds its cat plan's."""
+    from mopa_tpu_torch.data import collate
+
+    stack = ExitStack()
+    for name in ("_host_plan_batch", "_host_vgi_batch", "_true_level_nums"):
+        def timed(*args, _real=getattr(collate, name), _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _real(*args, **kw)
+            tag = {"_host_plan_batch": lambda: args[4],
+                   "_host_vgi_batch": lambda: "vgi",
+                   "_true_level_nums": lambda: "audit"}[_name]()
+            records.append((tag, (time.perf_counter() - t0) * 1e3))
+            return out
+        stack.enter_context(mock.patch.object(collate, name, timed))
+    return stack
+
+
+def host_ms(records) -> dict:
+    """One batch pair's host work by part, from :func:`timed_host_work`:
+    each plan group's builder time without its audit, host VGI without its
+    cat plan, the capacity audits of all groups (``audit_ms``) and the whole
+    (``total_ms``)."""
+    names = iter(("plan_source_ms", "plan_target_ms", "plan_teacher_ms"))
+    out = {"audit_ms": 0.0, "total_ms": 0.0}
+    audit = cat = 0.0
+    for tag, ms in records:
+        if tag == "audit":
+            audit += ms
+            out["audit_ms"] += ms
+            continue
+        if tag == "vgi":
+            out["vgi_ms"] = ms - cat
+        else:
+            out["plan_cat_ms" if tag == "hp_cat_" else next(names)] = \
+                ms - audit
+            audit = 0.0
+        if tag == "hp_cat_":
+            cat = ms
+        else:
+            out["total_ms"] += ms
+    return out
+
+
+def audit_host_plans(pairs, capacities) -> dict:
+    """Fails unless every group of every pair carries its host plan (none
+    overflowed the fixup budget) and every level's true voxel count
+    (``_<prefix>true_nums``) is within its capacity. Returns the most
+    fixups a sample used and the largest share of a capacity filled, per
+    group."""
+    import numpy as np
+
+    from mopa_tpu_torch.data import native_loader
+
+    fixups, fill = {}, {}
+    for src, trg in pairs:
+        groups = [(src, "hp_"), (trg, "hp_"), (trg, "hp_cat_")]
+        if "ori_coords" in trg:
+            groups.append((trg, "hp_ori_"))
+        for batch, pre in groups:
+            if pre + "rankn" not in batch:
+                fail("no {}* plan: its fixups overflowed the budget of "
+                     "{}".format(pre, native_loader.FIXUP_BUDGET))
+            used = int((batch[pre + "fix"] >= 0).sum(axis=1).max())
+            fixups[pre] = max(fixups.get(pre, 0), used)
+            caps = batch["_hp_cat_caps"] if pre == "hp_cat_" \
+                else np.asarray(capacities)
+            true = batch["_" + pre + "true_nums"]
+            if (true > caps[None]).any():
+                fail("{} plan: true voxel counts {} exceed the capacities {}"
+                     .format(pre, true.tolist(), caps.tolist()))
+            fill[pre] = max(fill.get(pre, 0.0), float((true / caps).max()))
+    return {"most_fixups": fixups, "fixup_budget": native_loader.FIXUP_BUDGET,
+            "largest_capacity_share": fill}
+
+
+def mopa_batches(n: int, start: int, with_ema: bool, cfg,
+                 batch_size: int = TRAIN_BATCH) -> tuple:
+    """``n`` (source, target) pairs for the shipped MoPA step: the targets
+    carry the raw VGI inputs (and with ``with_ema`` the teacher's view), and
+    the loader's host work runs on every batch, timed: host VGI with its cat
+    plan, and the plans of the source, target and teacher scans. Returns
+    (pairs, report): the milliseconds per pair and the audit of
+    :func:`audit_host_plans`."""
+    from mopa_tpu_torch.data import synthetic
+
+    host = synthetic.host_plan_settings(cfg, POINT_BUDGET, seed=start)
+    pairs = train_batches(n, batch_size, start, with_ema, with_vgi=True)
+    records, per_pair = [], []
+    with timed_host_work(records):
+        for src, trg in pairs:
+            del records[:]
+            synthetic.add_host_plans(src, host)
+            synthetic.add_host_plans(trg, host)
+            per_pair.append(host_ms(records))
+    report = {"per_pair_ms": per_pair,
+              **audit_host_plans(pairs, host["capacities"])}
+    report["vgi_inserted"] = [int(t["vgi_inserted"].sum()) for _, t in pairs]
+    return pairs, report
 
 
 def _losses(metrics) -> dict:
@@ -679,20 +811,24 @@ def lift_bn_biases(models, value: float = 3.0) -> None:
                     mod.bias.fill_(value)
 
 
-def f32_step_three_ways(device, ema_xm_prob=None) -> dict:
+def f32_step_three_ways(device, ema_xm_prob=None, vgi: bool = False) -> dict:
     """One float32 step of 1 + 1 scans: kernels, plain twins on the card, the
     whole port on the CPU. Dropout is off (the card's and the CPU's
     generators draw other masks). With ``ema_xm_prob`` (0 or 1, so the
     generators' bits do not decide the branch) an EMA step, whose teacher
-    labels must agree on >= 99.9 % of the valid points."""
+    labels must agree on >= 99.9 % of the valid points. With ``vgi`` the
+    shipped MoPA step: VGI on, 1 cat scan, host-built plans."""
     import torch
 
     from mopa_tpu_torch.train import trainer
 
     ema = ema_xm_prob is not None
     cfg = make_cfg("float32", train=True, batch_size=1,
-                   ema_xm_prob=ema_xm_prob)
-    (src, trg), = train_batches(1, 1, 400, with_ema=ema)
+                   ema_xm_prob=ema_xm_prob, vgi=vgi)
+    if vgi:
+        (src, trg), = mopa_batches(1, 400, ema, cfg, batch_size=1)[0]
+    else:
+        (src, trg), = train_batches(1, 1, 400, with_ema=ema)
     valid = torch.from_numpy(valid_mask(trg))
     labels = {}
 
@@ -757,7 +893,8 @@ def f32_step_three_ways(device, ema_xm_prob=None) -> dict:
                 fail("f32 EMA step {} (ema_xm_prob {}): teacher labels agree "
                      "on {} < 0.999 of the valid points".format(
                          tag, ema_xm_prob, agree))
-        print("f32 {} step 1+1 {}: {}".format(
+        print("f32 {}{} step 1+1 {}: {}".format(
+            "MoPA " if vgi else "",
             "EMA (ema_xm_prob {})".format(ema_xm_prob) if ema else "train",
             tag, res[tag]), flush=True)
     return res
@@ -794,24 +931,145 @@ def net3d_backward_ms(cfg, models, src, trg, device, n: int = 3) -> float:
     return statistics.median(times)
 
 
-def train_phase(batches, device, with_ema: bool = False) -> dict:
+def compare_plans(host, dev, tag: str) -> dict:
+    """Fails unless a decoded host plan equals the device build: every level
+    field and point map with its dtype, the ranks where a column has a
+    neighbour (an all-miss column, dz code 63, is read by no kernel: the
+    decode holds the previous rank there, the build the sentinel)."""
+    import torch
+
+    dead = 0
+    for l, (h, d) in enumerate(zip(host.levels, dev.levels)):
+        for f in ("valid", "down_nbr", "f2c", "up_off", "sel", "dom",
+                  "ranks"):
+            a, b = getattr(h, f), getattr(d, f)
+            if (a is None) != (b is None):
+                fail("{} plan L{} {}: present in one plan only".format(
+                    tag, l, f))
+            if a is None:
+                continue
+            if f == "ranks":
+                live = d.sel != 63
+                dead += int((~live).sum())
+                a, b = a[live], b[live]
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail("{} plan L{} {}: host decode != device build".format(
+                    tag, l, f))
+    for f in ("point_inverse", "point_counts", "num_voxels", "point_end",
+              "point_perm"):
+        a, b = getattr(host, f), getattr(dev, f)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail("{} plan {}: host decode != device build".format(tag, f))
+    return {"rows": [lv.valid.shape[0] for lv in host.levels],
+            "num_voxels": host.num_voxels.tolist(),
+            "all_miss_columns": dead}
+
+
+def host_plans_agree(src, trg, device) -> dict:
+    """Phase 7's check on the card: each group's decoded host plan (the
+    [source; target] scans, the teacher's view where the target has it, the
+    cat scans) against ``build_unet_plan_batched`` on the same scans."""
+    import torch
+
+    from mopa_tpu_torch.models.scn_unet import (HOST_PLAN_KEYS,
+                                                build_unet_plan_batched,
+                                                capacity_schedule,
+                                                plan_from_host_arrays)
+    from mopa_tpu_torch.train.common import decode_batch
+
+    bs, bt = decode_batch(src, device), decode_batch(trg, device)
+    b, p = bs["img_indices"].shape[:2]
+    n_cat = trg["cat_valid"].shape[1]
+    groups = [("student", [bs, bt], "hp_", torch.cat(
+        [bs["coords"], bt["coords"]]).reshape(2 * b, p, 3),
+        torch.cat([bs["point_valid"], bt["point_valid"]]), p,
+        [0] * b + [1] * b),
+        ("cat", [bt], "hp_cat_", torch.from_numpy(trg["_cat_coords"]).to(
+            device).reshape(b, n_cat, 3), bt["cat_valid"], n_cat, [2] * b)]
+    if "hp_ori_rankn" in bt:
+        groups.append(("teacher", [bt], "hp_ori_",
+                       bt["ori_coords"].reshape(b, p, 3),
+                       bt["ori_point_valid"], p, None))
+    out = {}
+    for tag, batches, pre, coords, valid, n, doms in groups:
+        caps = capacity_schedule(n, NUM_PLANES)
+        host = plan_from_host_arrays(
+            {k: torch.cat([x[pre + k] for x in batches])
+             for k in HOST_PLAN_KEYS}, caps, NUM_PLANES, sample_domains=doms)
+        dev = build_unet_plan_batched(coords, valid, NUM_PLANES,
+                                      capacities=caps, sample_domains=doms)
+        out[tag] = compare_plans(host, dev, tag)
+    print("host plans == device builds on the card: {}".format(out),
+          flush=True)
+    return out
+
+
+def _stage(prof: dict, name: str) -> dict:
+    st = prof.get("stages", {}).get(name, {})
+    return {k: st.get(k) for k in ("host_ms", "device_span_ms",
+                                   "device_kernel_ms")}
+
+
+def host_plan_turns(step, state, src, trg, stages) -> dict:
+    """The step on device-built plans (these batches) and on host-built
+    plans (the same batches with ``hp_*`` / ``hp_ori_*`` added; VGI off),
+    timed in turns (device, host, host, device, ...), then one traced step
+    of each: what the host plans do to the plan stages and to the device's
+    idle share."""
+    from mopa_tpu_torch.data import synthetic
+    from mopa_tpu_torch.models.scn_unet import capacity_schedule
+
+    host = {"capacities": capacity_schedule(POINT_BUDGET, NUM_PLANES),
+            "vgi": None}
+    t0 = time.perf_counter()
+    hsrc = synthetic.add_host_plans(dict(src), host)
+    htrg = synthetic.add_host_plans(dict(trg), host)
+    res = {"host_plan_build_ms": (time.perf_counter() - t0) * 1e3,
+           "device": {"steps_ms": []}, "host": {"steps_ms": []}}
+    batches = {"device": (src, trg), "host": (hsrc, htrg)}
+    for i in range(2 * WARM_REQUESTS):
+        kind = ("device", "host")[(i + i // 2) % 2]
+        res[kind]["steps_ms"].append(
+            timed_call(step, state, *batches[kind])[1])
+    for kind in ("device", "host"):
+        r = res[kind]
+        r["median_ms"] = statistics.median(r["steps_ms"])
+        prof = profile_call(lambda: step(state, *batches[kind]), stages)
+        r["device_busy_ms"] = prof.get("device_busy_ms")
+        r["device_idle_share"] = prof.get("device_idle_share")
+        r["wall_ms"] = prof.get("wall_ms")
+        for name in ("train/plan", "teacher/plan"):
+            if name in stages:
+                r[name] = _stage(prof, name)
+    print("device vs host plans, in turns: {}".format(res), flush=True)
+    return res
+
+
+def train_phase(batches, device, with_ema: bool = False,
+                vgi: bool = False) -> dict:
     """Phase 5 (pre-EMA) or, with ``with_ema``, phase 6 (the EMA phase at
     the shipped ``ema_xm_prob`` 0.7): the bf16 train step at full width over
     ``batches`` (one (source, target) pair per counted step), its launch
     counts, its falling loss, times, memory and profile, then the f32
     three-way check. The EMA phase also reads the share of teacher labels
     kept and times the teacher alone; its repeated-batch steps run the
-    student step on one set of teacher labels, so the target stays fixed."""
+    student step on one set of teacher labels, so the target stays fixed.
+    Without VGI the step on device-built plans is then timed in turns with
+    the step on host-built plans (:func:`host_plan_turns`). With ``vgi``
+    phases 7 and 8: the shipped MoPA step, VGI on, over batches that carry
+    host VGI's cat domain and host-built plans; every step must give a
+    finite ``pc_mm_loss`` and insert objects."""
     import torch
 
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
     from mopa_tpu_torch.train import trainer
     from mopa_tpu_torch.train.common import is_ema_key
 
-    tag = "EMA" if with_ema else "train"
+    tag = ("MoPA " if vgi else "") + ("EMA" if with_ema else "train")
+    scans = "8+8+8 cat" if vgi else "8+8"
     report = {}
     cfg = make_cfg("bfloat16", train=True,
-                   ema_xm_prob=0.7 if with_ema else None)
+                   ema_xm_prob=0.7 if with_ema else None, vgi=vgi)
     models = trainer.build_models(cfg, device=device, seed=0)
     state = trainer.create_train_state(cfg, models)
     step = trainer.make_train_step(cfg, models, with_pl=True,
@@ -824,10 +1082,13 @@ def train_phase(batches, device, with_ema: bool = False) -> dict:
         losses = _losses(metrics)
         if not all(torch.isfinite(torch.tensor(list(losses.values())))):
             fail("{} step {}: non-finite loss {}".format(tag, i, losses))
+        if vgi and not ("pc_mm_loss" in losses and losses["vgi_inserted"] > 0):
+            fail("{} step {}: no VGI loss or no inserted point: {}".format(
+                tag, i, losses))
         steps.append({"ms": ms, "peak_mib": peak, "losses": losses,
                       "cm_src_3d_sum": int(metrics["cm_src_3d"].sum())})
-        print("{} step {} bf16 8+8: {:.2f} ms, peak {:.0f} MiB, {}".format(
-            tag, i, ms, peak, losses), flush=True)
+        print("{} step {} bf16 {}: {:.2f} ms, peak {:.0f} MiB, {}".format(
+            tag, i, scans, ms, peak, losses), flush=True)
     launches = dict(scc.launches)
     n, k = len(conv_shapes()), len(batches)
     # the teacher's 3D forward adds n K1 launches per step
@@ -873,8 +1134,8 @@ def train_phase(batches, device, with_ema: bool = False) -> dict:
     report["warm_steps_ms"] = [w[1] for w in warm]
     report["warm_step_median_ms"] = statistics.median(report["warm_steps_ms"])
     report["peak_mib"] = max(w[2] for w in warm)
-    print("warm {} steps bf16 8+8 (ms): {}; median {:.2f} ms; peak {:.0f} "
-          "MiB".format(tag, report["warm_steps_ms"],
+    print("warm {} steps bf16 {} (ms): {}; median {:.2f} ms; peak {:.0f} "
+          "MiB".format(tag, scans, report["warm_steps_ms"],
                        report["warm_step_median_ms"], report["peak_mib"]),
           flush=True)
     stages = trainer.TRAIN_STAGES
@@ -892,9 +1153,12 @@ def train_phase(batches, device, with_ema: bool = False) -> dict:
         stages = trainer.TEACHER_STAGES + stages
     report["profile"] = profile_call(lambda: step(state, src, trg), stages,
                                      top=16)
-    print("{} profile bf16 8+8: {}".format(tag, report["profile"]),
+    print("{} profile bf16 {}: {}".format(tag, scans, report["profile"]),
           flush=True)
-    if not with_ema:
+    if not vgi:
+        report["host_plan_turns"] = host_plan_turns(step, state, src, trg,
+                                                    stages)
+    if not (with_ema or vgi):
         report["net3d_backward_ms"] = net3d_backward_ms(cfg, models, src, trg,
                                                         device)
         print("3D net backward alone, bf16 8+8: {} ms".format(
@@ -903,10 +1167,10 @@ def train_phase(batches, device, with_ema: bool = False) -> dict:
     torch.cuda.empty_cache()
     if with_ema:
         report["f32_three_ways"] = {
-            "ema_xm_prob_{}".format(x): f32_step_three_ways(device, x)
+            "ema_xm_prob_{}".format(x): f32_step_three_ways(device, x, vgi)
             for x in (0, 1)}
     else:
-        report["f32_three_ways"] = f32_step_three_ways(device)
+        report["f32_three_ways"] = f32_step_three_ways(device, vgi=vgi)
     return report
 
 
@@ -959,9 +1223,9 @@ def p2_edge_cases(device) -> list:
     """P2 beyond the probe's own data, each case one launch held to its
     plain twin by the bf16 rule: the probe's shape with its ranks shuffled
     within each sample (every tile takes the fallback), M not a multiple of
-    the tile, D = 8 (K padded) and D = 128, and out-of-range ranks (against
-    the twin on the table with a zero row appended), sorted (window tiles)
-    and shuffled (fallback tiles)."""
+    the tile, D = 8 (K padded) and D = 128, and out-of-range ranks (zero
+    rows in kernel and twin alike), sorted (window tiles) and shuffled
+    (fallback tiles)."""
     import torch
 
     from mopa_tpu_torch.ops import gather
@@ -988,7 +1252,6 @@ def p2_edge_cases(device) -> list:
     rows = []
     for name, shuffled, bad_ranks, (tab, idx, w) in cases:
         s, v, d = tab.shape
-        ref_tab, ref_idx = tab, idx
         if bad_ranks:
             g = torch.Generator(device=device).manual_seed(7)
             hit = torch.rand(idx.shape, generator=g, device=device) < 0.01
@@ -996,10 +1259,8 @@ def p2_edge_cases(device) -> list:
                                 dtype=torch.int32)
             bad = torch.where(bad < 0, bad, bad + v)  # [-8, 0) or [v, v + 8)
             idx = torch.where(hit, bad, idx).contiguous()
-            ref_tab = torch.cat([tab, tab.new_zeros((s, 1, d))], dim=1)
-            ref_idx = torch.where(hit, torch.full_like(idx, v), idx)
         got = gather.gather_gemm(tab, idx, w)
-        ref = gather.gather_gemm_plain(ref_tab, ref_idx, w)
+        ref = gather.gather_gemm_plain(tab, idx, w)
         torch.cuda.synchronize()
         row = {"case": name, "S": s, "V": v, "M": idx.shape[1] // gather.TAPS,
                "D": d, **fallback_tiles(idx, v),
@@ -1021,7 +1282,7 @@ def p2_edge_cases(device) -> list:
                 name))
         if bad_ranks and not n_bad:
             fail("P2 edge case {}: no out-of-range rank".format(name))
-        del tab, idx, w, got, ref, ref_tab, ref_idx
+        del tab, idx, w, got, ref
     return rows
 
 
@@ -1123,32 +1384,45 @@ def main() -> None:
         fail("run from a checkout of the repository (mopa_tpu_torch missing)")
     sys.path.insert(0, str(ROOT))
 
-    from mopa_tpu_torch.data import synthetic
+    from mopa_tpu_torch.data import native_loader, synthetic
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
     from mopa_tpu_torch.train import trainer
+    from mopa_tpu_torch.train.common import decode_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    report = {"card": card_line()}
+    report = {"card": card_line(), "phase_s": {}}
     print(report["card"], flush=True)
+    last = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the previous lap, kept as phase ``name``'s."""
+        now = time.perf_counter()
+        report["phase_s"][name] = now - last[0]
+        last[0] = now
 
     # -- phase 1: build
     t0 = time.perf_counter()
     scc.build()
     report["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_loader.build()
+    report["host_plan_build_s"] = time.perf_counter() - t0
     report["ptxas"] = {}
     for name in scc.SOURCES:
         log = scc.library_path(name).with_suffix(".log")
         report["ptxas"][name] = log.read_text() if log.exists() \
             else "(cached build)"
-    print("kernel build ({} sources in parallel): {:.2f} s".format(
-        len(scc.SOURCES), report["build_s"]))
+    print("kernel build ({} sources in parallel): {:.2f} s; host plan "
+          "builder (c++): {:.2f} s".format(len(scc.SOURCES), report["build_s"],
+                                           report["host_plan_build_s"]))
     for text in report["ptxas"].values():
         print(text.strip())
     report["kernel_build"] = kernel_report()
     print("kernels (registers, spilled bytes, stack frame, tensor-core MMA "
           "instructions): {}".format(report["kernel_build"]), flush=True)
+    lap("build")
 
     # -- data: 3 single-scan requests, one batch of 8 scans, and the fused
     # 8 + 8 scan plan of a train step (source and target BN domains)
@@ -1161,12 +1435,19 @@ def main() -> None:
     batches_e = train_batches(EMA_COUNTED_STEPS, TRAIN_BATCH, 200,
                               with_ema=True)
     report["train_data_s"] = time.perf_counter() - t0
-    src, trg = batches_t[0]
+    # the shipped MoPA step's batches: VGI on, the loader's host work done
+    cfg_m = make_cfg("bfloat16", train=True, vgi=True)
+    batches_m, host_m = mopa_batches(COUNTED_STEPS, 500, False, cfg_m)
+    batches_me, host_me = mopa_batches(EMA_COUNTED_STEPS, 600, True, cfg_m)
+    print("host work per MoPA batch pair (8 + 8 scans, 8 cat scans): {}; "
+          "EMA pairs: {}".format(host_m, host_me), flush=True)
     cfg = make_cfg("bfloat16")
+    lap("data")
 
     # -- phase 2: the gather probes
     report["gather"] = gather_phase(device)
     torch.cuda.empty_cache()
+    lap("gather")
 
     # -- phase 3: each conv kernel against its plain twin at every conv shape
     plans = {}
@@ -1175,36 +1456,54 @@ def main() -> None:
         valid = torch.from_numpy(valid_mask(batch)).to(device)
         coords = torch.from_numpy(batch["coords"]).to(device)
         plans[name] = trainer.build_plan_from_batch(cfg, coords, valid, p)
-    coords = torch.cat([torch.from_numpy(b["coords"]) for b in (src, trg)])
-    valid = torch.cat([torch.from_numpy(valid_mask(b)) for b in (src, trg)])
-    plans["train16"] = trainer.build_plan_from_batch(
-        cfg, coords.to(device), valid.to(device), POINT_BUDGET,
-        sample_domains=[0] * TRAIN_BATCH + [1] * TRAIN_BATCH)
+    # the shipped step's fused plan: 8 + 8 scans, then the 8 cat scans
+    plans["mopa24"] = trainer.build_train_plan(
+        cfg_m, *(decode_batch(b, device) for b in batches_m[0]), True)[0]
     for name, plan in plans.items():
         report["num_voxels_" + name] = plan.num_voxels.tolist()
-    rows = kernel_phase(plans, "train16", device)
+        report["rows_" + name] = [lv.valid.shape[0] for lv in plan.levels]
+    print("plan rows per level: {}".format(
+        {k: report["rows_" + k] for k in plans}), flush=True)
+    rows = kernel_phase(plans, "mopa24", device)
     report["kernel_rows"] = rows
     del plans
+    lap("kernels")
 
     # -- phase 4: the eval step
     report["eval"] = eval_phase(batches_1, batch_8, device)
     torch.cuda.empty_cache()
+    lap("eval")
 
     # -- phase 5: the train step
     report["train"] = train_phase(batches_t, device)
     torch.cuda.empty_cache()
+    lap("train")
 
     # -- phase 6: the EMA phase of the train step
     report["ema"] = train_phase(batches_e, device, with_ema=True)
+    torch.cuda.empty_cache()
+    lap("ema")
 
-    # -- phase 7: summary lines; each conv kernel at the shapes the train
-    # step gives it (the fused 16-scan plan, bfloat16), each probe kernel at
-    # the probe's
-    train_launches = report["train"]["launches"]
+    # -- phases 7 and 8: the shipped MoPA step, VGI on, host-built plans,
+    # before and after the EMA switch
+    for key, batches, host, with_ema in (("mopa", batches_m, host_m, False),
+                                         ("mopa_ema", batches_me, host_me,
+                                          True)):
+        report[key] = {"host": host,
+                       "plans_agree": host_plans_agree(*batches[0], device)}
+        report[key].update(train_phase(batches, device, with_ema=with_ema,
+                                       vgi=True))
+        torch.cuda.empty_cache()
+        lap(key)
+
+    # -- phase 9: summary lines; each conv kernel at the shapes the shipped
+    # step gives it (the fused 8 + 8 + 8-scan plan, bfloat16) with its
+    # launches in phase 7, each probe kernel at the probe's
+    train_launches = report["mopa"]["launches"]
 
     def main_rows(kernel, dtype="bfloat16"):
         return [r for r in rows if r["kernel"] == kernel
-                and r["plan"] == "train16" and r["dtype"] == dtype
+                and r["plan"] == "mopa24" and r["dtype"] == dtype
                 and not (kernel == K2_DFEATS and r["conv"] == "stem")]
 
     src_conv = "mopa_tpu_torch/csrc/submanifold_conv.cu"
@@ -1236,6 +1535,7 @@ def main() -> None:
             "bound_by": r["bound_by"], "bound_share": r["bound_ms"] / r["ms"],
             "library_ms": library_ms})
     report["kernels"] = kernels
+    print("phase seconds: {}".format(report["phase_s"]), flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

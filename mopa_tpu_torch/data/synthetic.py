@@ -10,7 +10,10 @@ voxel key per scan, as the reference's collate does for train batches. Train
 batches add the target-domain keys of the pre-EMA MoPA step: offline pseudo
 labels and SAM mask ids. No augmentation is applied, except to the student
 view of a target batch that also carries the EMA teacher's unaugmented view
-(``train_batch(..., with_ema=True)``).
+(``train_batch(..., with_ema=True)``). Target batches can carry the inputs
+of VGI (``with_vgi``: the raw scan in meters, its ground mask, one object
+to insert, the camera) and any batch its host-built voxel plans
+(``host_plans``: ``data.collate``), with host VGI run on the batch.
 """
 
 from __future__ import annotations
@@ -19,11 +22,19 @@ import numpy as np
 
 # Seed base of the reference's per-index raw scans (SyntheticSCN.__getitem__).
 SCAN_SEED = 20260817
+# The 3D augmentation of the shipped MoPA config's target scans
+# (configs/a2d2_semantic_kitti/xmuda_pl_mopa.yaml: SemanticKITTISCN's
+# defaults with rot_z 0), which host VGI draws once per batch.
+KITTI_TARGET_AUG = {"noisy_rot": 0.1, "flip_y": 0.5, "rot_z": 0.0,
+                    "transl": True}
+# Point slots per VGI object (the reference collate's obj_budget).
+OBJ_BUDGET = 2048
 
 
 def synthetic_scan(rng: np.random.Generator, n_points: int,
                    num_classes: int = 10):
-    """Ground rings + boxes; returns (points (N, 3) float32, labels (N,))."""
+    """Ground rings + boxes; returns (points (N, 3) float32, labels (N,),
+    ground mask (N,))."""
     n_rings = 48
     per = max(n_points // 2 // n_rings, 1)
     thetas = np.linspace(-0.436, -0.035, n_rings)  # -25 .. -2 deg
@@ -48,8 +59,9 @@ def synthetic_scan(rng: np.random.Generator, n_points: int,
                              rng.uniform(-1.7, -1.7 + 2 * sz, m)], 1))
         labs.append(np.full(m, c))
         remaining -= m
-    return (np.concatenate(pts).astype(np.float32),
-            np.concatenate(labs).astype(np.int64))
+    points = np.concatenate(pts).astype(np.float32)
+    return (points, np.concatenate(labs).astype(np.int64),
+            np.arange(points.shape[0]) < n_ground)
 
 
 def project(points: np.ndarray, image_size):
@@ -71,15 +83,17 @@ def eval_sample(index: int, n_points: int = 24000, image_size=(480, 302),
                 scale: int = 20, full_scale: int = 4096,
                 num_classes: int = 10, stream: int = 0) -> dict:
     """One scan: uint8 image (H, W, 3), img_indices (N, 2), coords (N, 3),
-    seg_label (N,). ``stream`` > 0 draws from another seed sequence (the
-    target domain of train batches)."""
+    seg_label (N,), and the points in meters (N, 3) with their ground mask
+    (N,) (``points``, ``g_mask``; the inputs of VGI). ``stream`` > 0 draws
+    from another seed sequence (the target domain of train batches)."""
     rng = np.random.default_rng(np.random.SeedSequence(
         [SCAN_SEED, index] + ([stream] if stream else [])))
-    points, labels = synthetic_scan(rng, n_points, num_classes)
+    points, labels, g_mask = synthetic_scan(rng, n_points, num_classes)
     img_points, keep = project(points, image_size)
     w, h = image_size
     image = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-    points, labels, img_points = points[keep], labels[keep], img_points[keep]
+    points, labels, g_mask = points[keep], labels[keep], g_mask[keep]
+    img_points = img_points[keep]
     img_indices = np.floor(img_points).astype(np.int64)
     img_indices[:, 0] = np.clip(img_indices[:, 0], 0, h - 1)
     img_indices[:, 1] = np.clip(img_indices[:, 1], 0, w - 1)
@@ -88,7 +102,8 @@ def eval_sample(index: int, n_points: int = 24000, image_size=(480, 302),
     inside = (coords.min(1) >= 0) & (coords.max(1) < full_scale)
     return {"img": image, "img_indices": img_indices[inside],
             "coords": coords[inside].astype(np.int64),
-            "seg_label": labels[inside]}
+            "seg_label": labels[inside], "points": points[inside],
+            "g_mask": g_mask[inside]}
 
 
 def _lexkey(coords: np.ndarray) -> np.ndarray:
@@ -183,10 +198,92 @@ def ema_views(sample: dict, point_budget: int, seed) -> tuple:
     return student, ori, stu_pos[order]
 
 
+def lidar_projection(image_size) -> np.ndarray:
+    """(3, 4) float32 lidar -> image matrix of :func:`project`'s camera."""
+    w, h = image_size
+    f = 0.6 * w
+    proj = np.array([[f, 0, w / 2.0, 0], [0, f, h / 2.0, 0], [0, 0, 1, 0]],
+                    np.float32)
+    basis = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0],
+                      [0, 0, 0, 1]], np.float32)
+    return proj @ basis
+
+
+def vgi_inputs(samples, point_budget: int, image_size, seed) -> dict:
+    """The raw VGI inputs of the reference's collated target batch, from
+    each scan's points picked to the budget (strided, in scan order): the
+    points in meters with an all-ones intensity column ``ori_points`` (B, P,
+    4) float32, ``ori_points_valid`` (B, P), ``vgi_num_points`` (B,),
+    ``g_mask`` (B, P) (the ground rings), ``ori_pseudo_label_3d`` (B, P)
+    (the labels with 30 % dropped to -100), one object per scan of 96-255
+    points in a 0.8 m box 5-12 m ahead (``obj_pc`` (B, 1, OBJ_BUDGET, 4),
+    ``obj_valid``, ``obj_label`` (B, 1) int32 class 3), ``proj_matrix`` (B,
+    3, 4) and ``img_size`` (B, 2) int32 (W, H)."""
+    rng = np.random.default_rng(np.random.SeedSequence(seed))
+    b, p = len(samples), int(point_budget)
+    out = {"ori_points": np.zeros((b, p, 4), np.float32),
+           "vgi_num_points": np.zeros(b, np.int64),
+           "g_mask": np.zeros((b, p), bool),
+           "ori_pseudo_label_3d": np.full((b, p), -100, np.int64),
+           "obj_pc": np.zeros((b, 1, OBJ_BUDGET, 4), np.float32),
+           "obj_valid": np.zeros((b, 1, OBJ_BUDGET), bool),
+           "obj_label": np.zeros((b, 1), np.int32),
+           "proj_matrix": np.broadcast_to(lidar_projection(image_size),
+                                          (b, 3, 4)).copy(),
+           "img_size": np.tile(np.asarray(image_size, np.int32), (b, 1))}
+    for i, smp in enumerate(samples):
+        n = smp["points"].shape[0]
+        pick = np.arange(n) if n <= p else \
+            np.linspace(0, n - 1, p).round().astype(np.int64)
+        k = pick.shape[0]
+        out["ori_points"][i, :k, :3] = smp["points"][pick]
+        out["ori_points"][i, :k, 3] = 1.0
+        out["vgi_num_points"][i] = k
+        out["g_mask"][i, :k] = smp["g_mask"][pick]
+        label = smp["seg_label"][pick].copy()
+        label[rng.random(k) < 0.3] = -100
+        out["ori_pseudo_label_3d"][i, :k] = label
+        m = int(rng.integers(96, 256))
+        centre = np.array([rng.uniform(5, 12), rng.uniform(-2, 2),
+                           rng.uniform(-1.6, -1.0)])
+        out["obj_pc"][i, 0, :m, :3] = centre + rng.uniform(-0.4, 0.4, (m, 3))
+        out["obj_pc"][i, 0, :m, 3] = rng.uniform(0, 1, m)
+        out["obj_valid"][i, 0, :m] = True
+        out["obj_label"][i, 0] = 3
+    out["ori_points_valid"] = (np.arange(p)[None, :]
+                               < out["vgi_num_points"][:, None])
+    return out
+
+
+def host_plan_settings(cfg, point_budget: int, seed: int = 0) -> dict:
+    """What :func:`train_batch` needs to build host plans for ``cfg``:
+    ``capacities`` (``capacity_schedule(point_budget)``, ``TPU.CAP_FACTORS``
+    honoured) and, when ``TRAIN.PC_MM.lambda_pc_mm`` > 0, ``vgi``: the host
+    VGI settings of ``data.collate._host_vgi_batch`` with a generator seeded
+    by ``seed`` (:data:`KITTI_TARGET_AUG`, scale 20, full scale 4096, x
+    forward)."""
+    from mopa_tpu_torch.models.scn_unet import capacity_schedule
+
+    levels = int(cfg.MODEL_3D.SCN.num_planes)
+    factors = tuple(cfg.TPU.get("CAP_FACTORS", ())) or None
+    out = {"capacities": capacity_schedule(int(point_budget), levels,
+                                           factors=factors), "vgi": None}
+    if float(cfg.TRAIN.PC_MM.lambda_pc_mm) > 0:
+        out["vgi"] = {"rng": np.random.default_rng(seed),
+                      "pc_mm": cfg.TRAIN.PC_MM,
+                      "aug": dict(KITTI_TARGET_AUG),
+                      "scale": 20.0, "full_scale": 4096,
+                      "front_axis_x": True, "num_levels": levels,
+                      "factors": factors}
+    return out
+
+
 def train_batch(batch_size: int, point_budget: int = 16384,
                 start_index: int = 0, image_size=(480, 302),
                 domain: str = "source", mask_budget: int = 64,
-                num_classes: int = 10, with_ema: bool = False) -> dict:
+                num_classes: int = 10, with_ema: bool = False,
+                with_vgi: bool = False, host_plans: dict | None = None
+                ) -> dict:
     """A collated train batch of scans ``start_index ..`` of one domain, in
     the wire format of :func:`collate_eval`. The target domain draws other
     scans and adds ``pseudo_label_2d``/``pseudo_label_3d`` (B*P,) (the
@@ -197,15 +294,23 @@ def train_batch(batch_size: int, point_budget: int = 16384,
     :func:`ema_views` and adds the teacher's keys: ``ori_img`` (B, H, W, 3)
     uint8, ``ori_img_indices`` (B, P, 2), ``ori_coords`` (B*P, 3),
     ``ori_num_points`` (B,), ``ori_feats_ones`` (B, 1) and ``ema_map``
-    (B, P) (-1 at padding and for points the teacher did not see)."""
+    (B, P) (-1 at padding and for points the teacher did not see).
+
+    ``with_vgi`` (target only) adds the raw VGI inputs of
+    :func:`vgi_inputs`. ``host_plans`` (:func:`host_plan_settings`) runs
+    the loader's host work on the batch (:func:`add_host_plans`): host VGI's
+    ``cat_*``, ``vgi_inserted`` and ``hp_cat_*`` keys replace the raw VGI
+    inputs, and ``hp_*`` / ``hp_ori_*`` hold the scans' plans."""
     if domain not in ("source", "target"):
         raise ValueError("domain must be 'source' or 'target'")
     target = domain == "target"
-    if with_ema and not target:
-        raise ValueError("only target batches carry the EMA teacher's view")
+    if (with_ema or with_vgi) and not target:
+        raise ValueError("only target batches carry the EMA teacher's view "
+                         "and the VGI inputs")
     samples = [eval_sample(start_index + i, image_size=image_size,
                            num_classes=num_classes, stream=int(target))
                for i in range(batch_size)]
+    raw = samples
     if with_ema:
         views = [ema_views(smp, point_budget, [SCAN_SEED, start_index + i, 3])
                  for i, smp in enumerate(samples)]
@@ -228,4 +333,31 @@ def train_batch(batch_size: int, point_budget: int = 16384,
         out["pseudo_label_3d"] = ps.copy()
         out["sam_mask"] = np.stack([sam_mask(rng, image_size, mask_budget)
                                     for _ in range(batch_size)])
+    if with_vgi:
+        out.update(vgi_inputs(raw, point_budget, image_size,
+                              [SCAN_SEED, start_index, batch_size, 4]))
+    if host_plans is not None:
+        add_host_plans(out, host_plans)
     return out
+
+
+def add_host_plans(batch: dict, host_plans: dict) -> dict:
+    """Run ``data.collate`` on a collated train batch, in place, as the
+    reference's loader does: host VGI first where the batch has VGI inputs
+    and ``host_plans`` (:func:`host_plan_settings`) holds ``vgi``, then the
+    plans of the key-sorted scans (``hp_*``, with ``point_valid``) and, where
+    the batch has the teacher's view, of that view (``hp_ori_*``, with
+    ``ori_point_valid``). Returns the batch."""
+    from mopa_tpu_torch.data import collate
+
+    b, p = batch["img_indices"].shape[:2]
+    if "ori_points" in batch and host_plans["vgi"] is not None:
+        collate._host_vgi_batch(batch, batch["ori_points"], b, p, OBJ_BUDGET,
+                                host_plans["vgi"])
+    for pre in ("", "ori_") if "ori_coords" in batch else ("",):
+        batch[pre + "point_valid"] = (np.arange(p)[None, :]
+                                      < batch[pre + "num_points"][:, None])
+        collate._host_plan_batch(batch, b, p, host_plans["capacities"],
+                                 "hp_" + pre, pre + "coords",
+                                 pre + "point_valid")
+    return batch

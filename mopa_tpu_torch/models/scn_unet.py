@@ -143,6 +143,196 @@ def build_unet_plan_batched(coords: torch.Tensor, valid: torch.Tensor,
                     point_perm=(perm + poff).reshape(-1))
 
 
+HOST_PLAN_KEYS = ("rankn", "ebits", "cbits", "downn", "downe", "f2c",
+                  "upoffn", "inverse", "counts", "nums", "fix")
+
+
+def _sel_code(e0: bool, e1: bool, e2: bool) -> int:
+    """The packed dz code of a column from its three dz existence bits
+    (``sparse_conv.wide_from_nbr``'s t0/t1/t2)."""
+    t0 = 0 if e0 else 1 if e1 else 2 if e2 else 3
+    t1 = 1 if e0 and e1 else 2 if (e0 or e1) and e2 else 3
+    t2 = 2 if e0 and e1 and e2 else 3
+    return t0 + (t1 << 2) + (t2 << 4)
+
+
+# dz code by the column's existence bits e0 | e1 << 1 | e2 << 2
+_SEL_BY_BITS = torch.tensor([_sel_code(b & 1, b >> 1 & 1, b >> 2 & 1)
+                             for b in range(8)], dtype=torch.int32)
+
+
+def _nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """(S, n) packed bytes -> (S, 2n) int64 nibbles, the low nibble first."""
+    p = packed.long()
+    return torch.stack([p & 15, p >> 4], dim=-1).reshape(p.shape[0],
+                                                         2 * p.shape[1])
+
+
+def plan_from_host_arrays(arrs: dict, capacities: Sequence[int],
+                          num_levels: int,
+                          sample_domains: Sequence[int] | None = None
+                          ) -> UNetPlan:
+    """Decode the host-built plans of S samples (``hp_*`` batch keys, wire
+    format v3 of ``csrc/host_plan.cpp``; each array (S, ...)) into one flat
+    plan: every array of :func:`build_unet_plan_batched`'s on the same
+    samples, with its dtypes, except the ranks of all-miss columns (dz code
+    63), which hold the previous rank instead of the sentinel and are read by
+    no kernel.
+
+    Rank and down-map deltas are 4-bit nibbles (low first) integrated by one
+    cumsum per level, after the fixups ((pos << 11) | excess, several at one
+    position add up) are scatter-added into them. The centre column is not
+    on the wire: its rank is slot - e0, its dz=0 bit is the slot's validity
+    and its dz=+1 bit is the next row's dz=-1 bit (``cbits``).
+
+    The points need not be sorted: ``point_perm`` is each sample's stable
+    argsort of its point -> slot map with misses last (the identity on
+    key-sorted points), so mean pooling reads each voxel's points as one
+    run."""
+    capacities = [int(c) for c in capacities]
+    dev = arrs["rankn"].device
+    s = arrs["rankn"].shape[0]
+    ar = torch.arange(s, device=dev)
+    sum8r = sum(capacities) * 8
+    sum8d = sum(capacities[1:]) * 8
+    fix = arrs["fix"].long()
+    pos, extra = fix >> 11, fix & 2047
+
+    def deltas(key, base, length):
+        """Nibble deltas of [base, base + length) of the unpacked
+        [rankn | downn] space with the fixups that land there added."""
+        d = _nibbles(arrs[key])[:, :length].reshape(-1)
+        local = pos - base
+        ok = (fix >= 0) & (local >= 0) & (local < length)
+        at = torch.where(ok, local + (ar * length)[:, None], 0)
+        return d.index_add_(0, at.reshape(-1),
+                            torch.where(ok, extra, 0).reshape(-1)
+                            ).reshape(s, length)
+
+    rank_d = deltas("rankn", 0, sum8r)
+    down_d = deltas("downn", sum8r, sum8d)
+    eb = arrs["ebits"].long()
+    w24 = eb[:, 0::3] | (eb[:, 1::3] << 8) | (eb[:, 2::3] << 16)
+    cb = arrs["cbits"].long()
+    cbits = ((cb[:, :, None] >> torch.arange(8, device=dev)) & 1).reshape(s,
+                                                                         -1)
+    upoff_all = _nibbles(arrs["upoffn"])
+    downe = arrs["downe"].long()
+    nums = arrs["nums"].long()
+    f2c_all = arrs["f2c"].long()
+    sel_lut = _SEL_BY_BITS.to(dev)
+    doms = None
+    if sample_domains is not None:
+        doms = torch.as_tensor(sample_domains, dtype=torch.int64, device=dev)
+    col_shift = 3 * torch.arange(8, device=dev)
+    octant = torch.arange(8, device=dev)
+
+    def column_sums(d, cap):
+        """(S, cap*8) row-major deltas -> (S, cap, 8) running sums down each
+        column. The scan runs along the last dimension: along dim 1 the GPU
+        scans each of the S*8 columns in one thread."""
+        return d.reshape(s, cap, 8).transpose(1, 2).cumsum(dim=2).transpose(
+            1, 2)
+
+    def with_centre(cols, centre):
+        return torch.cat([cols[:, :, :4], centre[:, :, None], cols[:, :, 4:]],
+                         dim=2)
+
+    levels = []
+    o8r = o1 = o8 = of = oe = oc = 0
+    for l in range(num_levels):
+        cap = capacities[l]
+        slot = torch.arange(cap, device=dev)[None, :]
+        valid = slot < nums[:, l:l + 1]
+        e0c = cbits[:, oc:oc + cap]
+        r8 = column_sums(rank_d[:, o8r:o8r + cap * 8], cap)
+        ranks = with_centre(r8, slot - e0c) + (ar * cap)[:, None, None]
+        nxt = torch.cat([e0c[:, 1:], e0c.new_zeros((s, 1))], dim=1)
+        bits = with_centre((w24[:, o1:o1 + cap, None] >> col_shift) & 7,
+                           e0c | (valid.long() << 1) | (nxt << 2))
+        down_nbr = f2c = up_off = None
+        if l >= 1:
+            capf = capacities[l - 1]
+            dloc = column_sums(down_d[:, o8:o8 + cap * 8], cap)
+            has = ((downe[:, oe:oe + cap, None] >> octant) & 1) == 1
+            down_nbr = torch.where(has, dloc + (ar * capf)[:, None, None],
+                                   -1).reshape(-1, 8)
+            fv = f2c_all[:, of:of + capf]
+            f2c = torch.where(fv >= 0, fv + (ar * cap)[:, None],
+                              -1).reshape(-1)
+            up_off = upoff_all[:, of:of + capf].reshape(-1)
+            o8 += cap * 8
+            of += capf
+            oe += cap
+        levels.append(LevelPlan(
+            valid=valid.reshape(-1), down_nbr=down_nbr, f2c=f2c,
+            up_off=up_off, ranks=ranks.reshape(-1).to(torch.int32),
+            sel=sel_lut[bits].reshape(-1),
+            dom=None if doms is None else doms.repeat_interleave(cap)))
+        o8r += cap * 8
+        o1 += cap
+        oc += -(-cap // 8) * 8
+    cap0 = capacities[0]
+    inv = arrs["inverse"].long()
+    p = inv.shape[1]
+    counts = arrs["counts"].long()
+    poff = (ar * p)[:, None]
+    run_order = torch.sort(torch.where(inv >= 0, inv, cap0), dim=1,
+                           stable=True).indices
+    return UNetPlan(
+        levels=tuple(levels),
+        point_inverse=torch.where(inv >= 0, inv + (ar * cap0)[:, None],
+                                  -1).reshape(-1),
+        point_counts=counts.reshape(-1),
+        num_voxels=nums.sum(dim=0),
+        point_end=(torch.cumsum(counts, dim=1) - 1 + poff).reshape(-1),
+        point_perm=(run_order + poff).reshape(-1))
+
+
+def concat_plans(plans: Sequence[UNetPlan]) -> UNetPlan:
+    """Concatenate flat plans with the same level count into one, shifting
+    slot and point indices by the preceding plans' sizes: fuses plan groups
+    of different per-sample capacities ([source; target] and the VGI cat
+    scans) into one multi-domain forward. The last sample's all-miss
+    sentinel rank of one group lands on the next group's first row; its dz
+    code (63) keeps every reader off it."""
+
+    def shifted(arrs, strides):
+        out, off = [], 0
+        for a, stride in zip(arrs, strides):
+            out.append(torch.where(a >= 0, a + off, -1))
+            off += stride
+        return torch.cat(out)
+
+    levels = []
+    for l in range(len(plans[0].levels)):
+        lv = [p.levels[l] for p in plans]
+        caps = [x.valid.shape[0] for x in lv]
+        down_nbr = f2c = up_off = None
+        if l >= 1:
+            down_nbr = shifted([x.down_nbr for x in lv],
+                               [p.levels[l - 1].valid.shape[0]
+                                for p in plans])
+            f2c = shifted([x.f2c for x in lv], caps)
+            up_off = torch.cat([x.up_off for x in lv])
+        levels.append(LevelPlan(
+            valid=torch.cat([x.valid for x in lv]), down_nbr=down_nbr,
+            f2c=f2c, up_off=up_off,
+            ranks=shifted([x.ranks for x in lv], caps),
+            sel=torch.cat([x.sel for x in lv]),
+            dom=(torch.cat([x.dom for x in lv]) if lv[0].dom is not None
+                 else None)))
+    npts = [p.point_inverse.shape[0] for p in plans]
+    return UNetPlan(
+        levels=tuple(levels),
+        point_inverse=shifted([p.point_inverse for p in plans],
+                              [p.levels[0].valid.shape[0] for p in plans]),
+        point_counts=torch.cat([p.point_counts for p in plans]),
+        num_voxels=sum(p.num_voxels for p in plans),
+        point_end=shifted([p.point_end for p in plans], npts),
+        point_perm=shifted([p.point_perm for p in plans], npts))
+
+
 def apply_submanifold(x: torch.Tensor, lv: LevelPlan,
                       weight: torch.Tensor) -> torch.Tensor:
     """Submanifold conv through the level's wide-column plan (the K1

@@ -62,9 +62,14 @@ def tile_windows(idx: torch.Tensor, v: int,
 
 
 def row_gather_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """P1's twin: tab (S, V, D), idx (S, N) in [0, V) -> (S, N, D)."""
+    """P1's twin: tab (S, V, D), idx (S, N) -> (S, N, D); a rank outside
+    [0, V) reads a zero row, as the kernels do."""
+    v = tab.shape[1]
+    idx = idx.long()
+    inside = (idx >= 0) & (idx < v)
     rows = torch.arange(tab.shape[0], device=tab.device)[:, None]
-    return tab[rows, idx.long()]
+    out = tab[rows, torch.where(inside, idx, 0)]
+    return torch.where(inside[..., None], out, torch.zeros_like(out))
 
 
 def gather_gemm_plain(tab: torch.Tensor, idx: torch.Tensor,
@@ -94,7 +99,8 @@ def _check(tab: torch.Tensor, idx: torch.Tensor, what: str) -> None:
 
 def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P1 on a CUDA ``tab`` (S, V, D) bfloat16, D a multiple of 8, and int32
-    ``idx`` (S, N) in [0, V); the twin on CPU tensors."""
+    ``idx`` (S, N) (a rank outside [0, V) reads a zero row); the twin on CPU
+    tensors."""
     if not tab.is_cuda:
         return row_gather_plain(tab, idx)
     _check(tab, idx, "P1")

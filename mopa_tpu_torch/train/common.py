@@ -1,6 +1,6 @@
 """Batch decoding (PyTorch port of ``mopa_tpu/train/common.py::decode_batch``
-for the keys of eval batches, of train batches and of the EMA teacher's
-unaugmented view)."""
+for the keys of eval batches, of train batches, of the EMA teacher's
+unaugmented view, of host-built plans and of the host VGI cat domain)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,8 @@ import torch
 
 _INT_KEYS = ("coords", "img_indices", "seg_label", "pseudo_label_2d",
              "pseudo_label_3d", "sam_mask", "ema_map", "ori_coords",
-             "ori_img_indices")
+             "ori_img_indices", "hp_counts", "hp_inverse", "hp_ori_counts",
+             "hp_ori_inverse", "cat_label", "hp_cat_counts", "hp_cat_inverse")
 
 # Keys only the EMA teacher reads (its unaugmented inputs and their host-built
 # plans); the student step never sees them.
@@ -27,11 +28,12 @@ def decode_batch(batch: dict, device) -> dict:
     """Copy a collated batch to ``device`` and widen it to compute dtypes.
 
     Accepts numpy arrays or tensors in the wire format: uint8 images
-    (``img``, ``ori_img``) become float32 in [0, 1]; integer keys become
-    int64; ``point_valid``/``ori_point_valid`` are rebuilt from
-    ``num_points``/``ori_num_points`` when absent; an all-ones SCN feature
-    column shipped as the (B, C) ``feats_ones``/``ori_feats_ones`` marker is
-    expanded; ``batch_idx``/``ori_batch_idx`` are derived from the (B, P)
+    (``img``, ``ori_img``) become float32 in [0, 1]; integer keys (the
+    compact int16 ``inverse``/``counts`` of host plans and ``cat_label``
+    among them) become int64; ``point_valid``/``ori_point_valid`` are
+    rebuilt from ``num_points``/``ori_num_points`` when absent; an all-ones
+    SCN feature column shipped as the (B, C) ``feats_ones``/
+    ``ori_feats_ones`` marker is expanded; ``batch_idx``/``ori_batch_idx`` are derived from the (B, P)
     layout when absent. Keys starting with "_" stay on the host side and are
     dropped.
     """

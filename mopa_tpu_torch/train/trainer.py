@@ -8,9 +8,17 @@ consistency losses, one joint backward (the cross-modal teachers are
 detached exactly where the reference calls ``.detach()``), an update of each
 net by its own optimizer, then the EMA update. From ``ema_start_iter`` on
 (``with_ema``), an EMA teacher first labels the target batch from its
-unaugmented view, and its labels replace the offline pseudo labels. VGI,
-host-built plans, the other 3D backbones and multi-card data parallelism are
-ROADMAP slice 4 and raise ``NotImplementedError``.
+unaugmented view, and its labels replace the offline pseudo labels.
+
+With ``TRAIN.PC_MM.lambda_pc_mm`` > 0 (the shipped MoPA config) the step
+also trains the 3D net on the VGI cat domain, the target scans with an
+object inserted on the host (``data.vgi_host``): a third batch-norm domain
+of the fused 3D forward, with its own CE loss. Voxel plans come from the
+batch's host-built ``hp_*`` / ``hp_ori_*`` / ``hp_cat_*`` keys where it
+has them, else from the device build. VGI
+without host-built cat arrays (the reference's device VGI), the other 3D
+backbones, the depth head and multi-card data parallelism are not ported
+and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,8 +39,10 @@ from mopa_tpu_torch.models import losses as L
 from mopa_tpu_torch.models import weights
 from mopa_tpu_torch.models.build import build_model_2d, build_model_3d
 from mopa_tpu_torch.models.metric import confusion_matrix
-from mopa_tpu_torch.models.scn_unet import (UNetPlan, build_unet_plan_batched,
-                                            capacity_schedule)
+from mopa_tpu_torch.models.scn_unet import (HOST_PLAN_KEYS, UNetPlan,
+                                            build_unet_plan_batched,
+                                            capacity_schedule, concat_plans,
+                                            plan_from_host_arrays)
 from mopa_tpu_torch.train.common import decode_batch, is_ema_key
 
 # Names of the profiler ranges that mark the train step's stages, in order.
@@ -43,14 +53,24 @@ TRAIN_STAGES = ("train/decode", "train/plan", "train/net2d", "train/net3d",
 TEACHER_STAGES = ("teacher/decode", "teacher/plan", "teacher/net2d",
                   "teacher/net3d", "teacher/refine")
 
-_SLICE4 = "not ported yet (ROADMAP slice 4): "
+
+def _not_ported(item: str, what: str) -> NotImplementedError:
+    return NotImplementedError("not ported yet (ROADMAP {}): {}".format(
+        item, what))
 
 
 def _num_levels(cfg) -> int:
     if cfg.MODEL_3D.TYPE != "SCN":
-        raise NotImplementedError(
-            _SLICE4 + "3D backbone {}".format(cfg.MODEL_3D.TYPE))
+        raise _not_ported("M14", "3D backbone {}".format(cfg.MODEL_3D.TYPE))
     return int(cfg.MODEL_3D.SCN.num_planes)
+
+
+def _host_plan(batch: dict, prefix: str, capacities, num_levels: int,
+               sample_domains=None) -> UNetPlan:
+    """The plan of a decoded batch's host-built ``<prefix>*`` keys."""
+    return plan_from_host_arrays({k: batch[prefix + k]
+                                  for k in HOST_PLAN_KEYS}, capacities,
+                                 num_levels, sample_domains=sample_domains)
 
 
 def _capacities(cfg, n_points: int):
@@ -74,6 +94,44 @@ def build_plan_from_batch(cfg, coords: torch.Tensor, valid_flat: torch.Tensor,
                                    valid_flat.reshape(s, p), _num_levels(cfg),
                                    capacities=_capacities(cfg, p),
                                    sample_domains=sample_domains)
+
+
+def build_train_plan(cfg, batch_src: dict, batch_trg: dict,
+                     with_vgi: bool) -> tuple:
+    """(plan, cat) of the student step over decoded batches: one fused plan
+    of the 2B [source; target] scans (BN domains 0 and 1), decoded from their
+    ``hp_*`` keys where both batches have them, else built from their
+    coordinates; with ``with_vgi`` the B cat scans of host VGI
+    (``hp_cat_*``, domain 2) concatenated after them, and ``cat`` holds
+    their flat ``valid``, ``label``, ``obj_mask`` and all-ones ``feats``
+    (else None)."""
+    b, p = batch_src["img_indices"].shape[:2]
+    num_levels = _num_levels(cfg)
+    doms = [0] * b + [1] * b
+    with torch.no_grad():
+        if "hp_rankn" in batch_src and "hp_rankn" in batch_trg:
+            plan = plan_from_host_arrays(
+                {k: torch.cat([batch_src["hp_" + k], batch_trg["hp_" + k]])
+                 for k in HOST_PLAN_KEYS}, _capacities(cfg, p), num_levels,
+                sample_domains=doms)
+        else:
+            plan = build_unet_plan_batched(
+                torch.cat([batch_src["coords"],
+                           batch_trg["coords"]]).reshape(2 * b, p, 3),
+                torch.cat([batch_src["point_valid"],
+                           batch_trg["point_valid"]]),
+                num_levels, capacities=_capacities(cfg, p),
+                sample_domains=doms)
+        if not with_vgi:
+            return plan, None
+        valid = batch_trg["cat_valid"].reshape(-1)
+        cat = {"valid": valid, "label": batch_trg["cat_label"].reshape(-1),
+               "obj_mask": batch_trg["cat_obj_mask"].reshape(-1),
+               "feats": torch.ones((valid.shape[0], 1), device=valid.device)}
+        cat_plan = _host_plan(batch_trg, "hp_cat_",
+                              _capacities(cfg, valid.shape[0] // b),
+                              num_levels, sample_domains=[2] * b)
+        return concat_plans([plan, cat_plan]), cat
 
 
 class Models(NamedTuple):
@@ -152,8 +210,9 @@ def teacher_forward(cfg, models: Models, state: TrainState, batch: dict):
 
     Both nets run in eval mode without gradients, with the EMA parameters
     and the student's batch-norm running statistics, as the reference's
-    teacher applies ``ema_params`` with ``batch_stats``. The plan is built
-    from ``ori_coords`` in one batch-norm domain."""
+    teacher applies ``ema_params`` with ``batch_stats``. The plan, in one
+    batch-norm domain, is decoded from the batch's ``hp_ori_*`` keys, or,
+    without them, built from ``ori_coords``."""
     _, plan_r, net2d, net3d, _ = TEACHER_STAGES
     p = batch["ori_img_indices"].shape[1]
     valid = batch["ori_point_valid"]
@@ -161,8 +220,12 @@ def teacher_forward(cfg, models: Models, state: TrainState, batch: dict):
     models.model_3d.eval()
     with torch.no_grad():
         with record_function(plan_r):
-            plan = build_plan_from_batch(cfg, batch["ori_coords"],
-                                         valid.reshape(-1), p)
+            if "hp_ori_rankn" in batch:
+                plan = _host_plan(batch, "hp_ori_", _capacities(cfg, p),
+                                  _num_levels(cfg))
+            else:
+                plan = build_plan_from_batch(cfg, batch["ori_coords"],
+                                             valid.reshape(-1), p)
         with record_function(net2d):
             out2d = functional_call(models.model_2d, state.ema_params_2d,
                                     (batch["ori_img"],
@@ -219,12 +282,14 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     the target first (:func:`teacher_forward`, :func:`teacher_labels`) from
     the target's EMA-only keys (``train.common.EMA_ONLY_KEYS``), its labels
     replace ``pseudo_label_2d/3d``, and the EMA-only keys are stripped before
-    the student step; ``with_mopa``: the MoPA-only SAM consistency term
-    (``sam_mask``). The cross-modal, MinEnt and SAM terms are on where their
-    lambdas are > 0. The step updates ``state`` in place and returns it with
-    ``step`` + 1; ``metrics`` maps names to device tensors (losses,
-    ``total_loss``, and the int64 confusion matrices
-    ``cm_src_2d``/``cm_src_3d``). Each stage is one ``record_function``
+    the student step; ``with_mopa``: the MoPA-only SAM consistency
+    (``sam_mask``) and VGI terms. The cross-modal, MinEnt, SAM and VGI terms
+    are on where their lambdas are > 0; VGI reads the target's host VGI keys
+    (``cat_valid``, ``cat_label``, ``cat_obj_mask``, ``hp_cat_*``). The
+    step updates ``state`` in place and returns it with ``step`` + 1;
+    ``metrics`` maps names to device tensors (losses, ``total_loss``, the
+    int64 confusion matrices ``cm_src_2d``/``cm_src_3d``, and with VGI
+    ``pc_mm_acc`` and ``vgi_inserted``). Each stage is one ``record_function``
     range named in :data:`TRAIN_STAGES` (and :data:`TEACHER_STAGES`). With
     ``with_ema`` the returned step exposes its halves as ``.teacher_step(state,
     batch_trg) -> (pl_2d, pl_3d)`` (int16) and ``.student_step``."""
@@ -232,14 +297,12 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     pc_mm = cfg.TRAIN.PC_MM
     if with_ema and not with_pl:
         raise ValueError("EMA teacher implies pseudo-label CE (with_pl)")
-    if with_mopa and float(pc_mm.lambda_pc_mm) > 0:
-        raise NotImplementedError(_SLICE4 + "VGI (TRAIN.PC_MM.lambda_pc_mm "
-                                  "> 0)")
     if mesh is not None:
-        raise NotImplementedError(_SLICE4 + "data parallelism over a mesh")
+        raise _not_ported("M13", "data parallelism over a mesh")
     if bool(cfg.TRAIN.get("DEPTH_PRED", False)):
-        raise NotImplementedError(_SLICE4 + "the depth head (TRAIN.DEPTH_PRED)")
-    num_levels = _num_levels(cfg)
+        raise _not_ported("M14", "the depth head (TRAIN.DEPTH_PRED)")
+    _num_levels(cfg)  # an unported 3D backbone raises here
+    with_vgi = with_mopa and float(pc_mm.lambda_pc_mm) > 0
     dual_head = bool(cfg.MODEL_2D.DUAL_HEAD)
     num_classes = int(cfg.MODEL_2D.NUM_CLASSES)
     with_xm_src = lam.lambda_xm_src > 0
@@ -261,7 +324,7 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
                          "build the models with TRAIN.PC_MM.lambda_sam_cons "
                          "> 0")
 
-    def losses(out2d, out3d, batch_src, batch_trg, b, p):
+    def losses(out2d, out3d, batch_src, batch_trg, cat, b, p):
         metrics = {}
         npnt = b * p
         src_2d = {k: v[:npnt] for k, v in out2d.items()
@@ -269,7 +332,7 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         trg_2d = {k: v[npnt:] for k, v in out2d.items()
                   if k != "seg_logit_all"}
         src_3d = {k: v[:npnt] for k, v in out3d.items()}
-        trg_3d = {k: v[npnt:] for k, v in out3d.items()}
+        trg_3d = {k: v[npnt:2 * npnt] for k, v in out3d.items()}
 
         src_valid = batch_src["point_valid"].reshape(-1)
         seg_label = batch_src["seg_label"]
@@ -333,15 +396,29 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
                                    mask_budget, min_entropy=True)
             metrics["sam_cons_loss"] = sam
             total = total + pc_mm.lambda_sam_cons * sam
+
+        if cat is not None:
+            cat_logit = out3d["seg_logit"][2 * npnt:]
+            vgi_loss = L.cross_entropy(cat_logit, cat["label"],
+                                       cat["valid"] & (cat["label"] >= 0),
+                                       pl_weights)
+            with torch.no_grad():
+                obj = cat["obj_mask"] & cat["valid"]
+                hit = (cat_logit.argmax(dim=-1) == cat["label"]) & obj
+                metrics["pc_mm_acc"] = hit.sum() / obj.sum().clamp(min=1)
+                metrics["vgi_inserted"] = obj.sum()
+            metrics["pc_mm_loss"] = vgi_loss
+            total = total + pc_mm.lambda_pc_mm * vgi_loss
         metrics["total_loss"] = total
         return total, metrics
 
     def train_step(state: TrainState, batch_src: dict, batch_trg: dict):
         (decode, plan_r, net2d, net3d, loss_r, backward, optim,
          ema) = TRAIN_STAGES
-        if any(k.startswith("hp_") for k in (*batch_src, *batch_trg)):
-            raise NotImplementedError(_SLICE4 + "host-built plans (hp_* "
-                                      "batch keys)")
+        if with_vgi and "hp_cat_rankn" not in batch_trg:
+            raise _not_ported("M14", "device VGI (TRAIN.PC_MM.lambda_pc_mm "
+                              "> 0 on a target batch without host VGI's "
+                              "hp_cat_* keys)")
         model_2d.train()
         model_3d.train()
         with record_function(decode):
@@ -349,15 +426,7 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
             batch_trg = decode_batch(batch_trg, device)
             b, p = batch_src["img_indices"].shape[:2]
         with record_function(plan_r):
-            # one plan over the 2B scans: sources are BN domain 0, targets 1
-            with torch.no_grad():
-                plan = build_unet_plan_batched(
-                    torch.cat([batch_src["coords"],
-                               batch_trg["coords"]]).reshape(2 * b, p, 3),
-                    torch.cat([batch_src["point_valid"],
-                               batch_trg["point_valid"]]),
-                    num_levels, capacities=_capacities(cfg, p),
-                    sample_domains=[0] * b + [1] * b)
+            plan, cat = build_train_plan(cfg, batch_src, batch_trg, with_vgi)
         state.opt_2d.zero_grad()
         state.opt_3d.zero_grad()
         with record_function(net2d):
@@ -369,11 +438,14 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
                            batch_trg["point_valid"]]),
                 n_domains=2, generator=state.rng)
         with record_function(net3d):
-            out3d = model_3d(torch.cat([batch_src["feats"],
-                                        batch_trg["feats"]]), plan,
-                             n_domains=2)
+            feats = [batch_src["feats"], batch_trg["feats"]]
+            if cat is not None:
+                feats.append(cat["feats"])
+            out3d = model_3d(torch.cat(feats), plan,
+                             n_domains=2 if cat is None else 3)
         with record_function(loss_r):
-            total, metrics = losses(out2d, out3d, batch_src, batch_trg, b, p)
+            total, metrics = losses(out2d, out3d, batch_src, batch_trg, cat,
+                                    b, p)
         with record_function(backward):
             total.backward()
         with record_function(optim):
@@ -400,9 +472,6 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
 
     def teacher_step(state: TrainState, batch_trg: dict):
         decode, *_, refine_r = TEACHER_STAGES
-        if any(k.startswith("hp_") for k in batch_trg):
-            raise NotImplementedError(_SLICE4 + "host-built plans (hp_* "
-                                      "batch keys)")
         with record_function(decode):
             batch = decode_batch({k: v for k, v in batch_trg.items()
                                   if is_ema_key(k)}, device)

@@ -300,9 +300,8 @@ def test_p2_tile_emulation_matches_pallas_body(c, order):
                                            (128, 96)])
 def test_p2_tile_emulation_on_ragged_tiles_and_bad_ranks(d, window_rows):
     """M = 300 (the last tile 44 rows), sorted ranks of which a few lie
-    outside [0, V): the emulation equals the twin on the table with a zero
-    row appended and those ranks pointed at it, in window and fallback
-    tiles alike."""
+    outside [0, V): the emulation equals the twin, which reads those ranks
+    as zero rows, in window and fallback tiles alike."""
     s, v, m = 2, 500, 300
     rng = np.random.default_rng(3)
     tab = torch.from_numpy(rng.normal(size=(s, v, d)).astype(np.float32)
@@ -317,12 +316,36 @@ def test_p2_tile_emulation_on_ragged_tiles_and_bad_ranks(d, window_rows):
     got, lo, hi, fits = _emulate_p2(tab, idx, w, window_rows)
     assert fits.all() if window_rows > v else not fits.all()
     assert lo.min() >= 0 and hi.max() < v
-    tab0 = torch.cat([tab, tab.new_zeros((s, 1, d))], dim=1)
-    idx0 = torch.where((idx >= 0) & (idx < v), idx, torch.full_like(idx, v))
-    ref = gather.gather_gemm_plain(tab0, idx0, w).float().numpy()
+    ref = gather.gather_gemm_plain(tab, idx, w).float().numpy()
     assert got.shape == ref.shape == (s, m, COUT)
     err = np.abs(got - ref).max()
     assert err <= 2 ** -7 * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize("wrapper", ["row_gather", "gather_gemm"])
+def test_wrappers_read_out_of_range_ranks_as_zero_rows(wrapper):
+    """On CPU tensors both wrappers run their twins, which read a rank
+    outside [0, V) (negative or past the table) as a zero row, as the CUDA
+    kernels do: the result equals the one on the table with a zero row
+    appended and those ranks pointed at it."""
+    s, v, d, m = 2, 40, 16, 24
+    rng = np.random.default_rng(4)
+    tab = torch.from_numpy(rng.normal(size=(s, v, d)).astype(np.float32)
+                           ).to(torch.bfloat16)
+    ranks = rng.integers(0, v, size=(s, m * gather.TAPS))
+    ranks[0, :5] = [-1, -7, v, v + 3, 2 * v]
+    ranks[1, -3:] = [-v, v + 1, -2]
+    idx = torch.from_numpy(ranks.astype(np.int32))
+    tab0 = torch.cat([tab, tab.new_zeros((s, 1, d))], dim=1)
+    idx0 = torch.where((idx >= 0) & (idx < v), idx, torch.full_like(idx, v))
+    if wrapper == "row_gather":
+        got, want = gather.row_gather(tab, idx), gather.row_gather(tab0, idx0)
+    else:
+        w = torch.from_numpy(rng.normal(size=(gather.TAPS * d, COUT)).astype(
+            np.float32)).to(torch.bfloat16)
+        got = gather.gather_gemm(tab, idx, w)
+        want = gather.gather_gemm(tab0, idx0, w)
+    assert torch.equal(got, want)
 
 
 def test_tile_windows_spans():

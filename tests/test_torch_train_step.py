@@ -24,7 +24,9 @@ on the other side of the kink moves the gradient of every encoder tensor by
 * (c) The port sorts points itself: the step on shuffled scans gives the
   losses of the step on sorted scans.
 * Each path the port does not have yet raises ``NotImplementedError``
-  naming ROADMAP slice 4 (VGI and host-built plans).
+  naming its ROADMAP item: device VGI (VGI on a target batch without host
+  VGI's ``hp_cat_*`` keys), another 3D backbone and the depth head (M14), a
+  device mesh (M13).
 """
 
 import flax.linen
@@ -303,11 +305,12 @@ def test_step_on_shuffled_points():
                                    err_msg=k, **LOSS_TOL)
 
 
-@pytest.mark.parametrize("case", ["ema_host_plans", "vgi", "host_plans",
-                                  "backbone", "mesh", "depth"])
-def test_unported_paths_raise(case):
+@pytest.mark.parametrize("case,item", [("device_vgi", "M14"),
+                                       ("backbone", "M14"), ("mesh", "M13"),
+                                       ("depth", "M14")])
+def test_unported_paths_raise(case, item):
     kw = {}
-    if case == "vgi":
+    if case == "device_vgi":
         kw["TRAIN.PC_MM.lambda_pc_mm"] = 0.1
     if case == "backbone":
         kw["MODEL_3D.TYPE"] = "SPVCNN"
@@ -316,14 +319,9 @@ def test_unported_paths_raise(case):
     pcfg = _cfg(port_base_cfg, **kw)
     build_cfg = _cfg(port_base_cfg)
     models = port_trainer.build_models(build_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP " + item):
         step = port_trainer.make_train_step(
-            pcfg, models, with_pl=True, with_ema=case == "ema_host_plans",
+            pcfg, models, with_pl=True,
             mesh=object() if case == "mesh" else None)
         state = port_trainer.create_train_state(build_cfg, models)
-        src, trg = _batch(1, False), _batch(2, True)
-        if case == "host_plans":
-            src["hp_rankn"] = np.zeros((B, 8), np.uint8)
-        if case == "ema_host_plans":
-            trg["hp_ori_rankn"] = np.zeros((B, 8), np.uint8)
-        step(state, src, trg)
+        step(state, _batch(1, False), _batch(2, True))
