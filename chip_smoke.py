@@ -89,7 +89,37 @@ Phases, in order; any failure exits non-zero:
    rows), with a finite ``pc_mm_loss`` and inserted points in every step,
    and its f32 1 + 1 + 1 step three ways.
 8. The same with the EMA teacher (as phase 6; its plan from ``hp_ori_*``).
-9. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
+9. The shipped MoPA step fed by the port's loaders, as the train loop runs
+   it: ``configs/synthetic/mopa_smoke.yaml`` at production shapes
+   (:func:`smoke_cfg`), ``data.build.build_dataloader`` for each stream (4
+   pool threads, host VGI and host plans on the producer thread), each
+   wrapped in ``train.common.device_prefetch`` (pinned copies on a side
+   stream; the source and, before the switch, the target without the EMA
+   teacher's keys, the target without ``seg_label``); 10 iterations before
+   the EMA switch, then both loaders rebuilt at the switch (the target's
+   with the teacher's inputs) and 12 EMA iterations. In each phase the
+   first iteration is set apart, the next ones are timed one by one (a
+   synchronize after each), :data:`LOADER_WINDOW` run back to back with no
+   synchronize (timed as a whole) and the last is traced. Per iteration:
+   the exact K1/K2 launches (14/13/14, then 28/13/14), all on the
+   tensor-core route, finite losses with ``pc_mm_loss``, inserted points,
+   the EMA keys only on the EMA phase's target batches. The first iteration
+   and the window's iterations are replayed on a second copy of the nets
+   from the state they started from, fed ``device_batch`` of the same host
+   batches: their losses must agree within :data:`LOSS_RTOL` (and the
+   inserted points exactly), which a copy that the step read before it
+   landed, or overwrote while the step read it, would break. At each
+   phase's first iteration the prefetched batches also equal
+   ``device_batch`` of their host batches bit for bit, the audited
+   batches' true level counts are within capacity, and (before the switch)
+   the first pair's decoded host plans equal the device build. Reported:
+   the median wall ms per timed iteration beside phases 7 and 8's step,
+   the window's ms per iteration, the loop's wait in ``next()`` per stream
+   and the step inside the loop, the device's idle share and the
+   ``train/decode`` span of the traced iteration, and each loader alone
+   (batches/s, host ms per batch by part). An exception raised in a
+   loader's pool must reach the consumer.
+10. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
    and ``kernel_route`` the conv kernels' route on the main path, whose
    launches are phase 7's), the card line, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -125,6 +155,10 @@ WARM_REQUESTS = 5
 COUNTED_STEPS = 3
 EMA_COUNTED_STEPS = 2
 REPEATED_STEPS = 5
+LOADER_PRE_EMA, LOADER_EMA = 10, 12  # loader-fed iterations around the switch
+LOADER_WINDOW = 3  # iterations of each phase run with no synchronize
+LOSS_RTOL = 1e-3   # a loader-fed loss against its replay on device_batch
+LOADER_DRAIN = 6   # batches of each loader alone
 
 K1 = "K1 submanifold_conv_fwd"
 K2_DFEATS = "K2 submanifold_conv_bwd_dfeats"
@@ -1174,6 +1208,446 @@ def train_phase(batches, device, with_ema: bool = False,
     return report
 
 
+def smoke_cfg():
+    """``configs/synthetic/mopa_smoke.yaml`` at production shapes, as
+    ``bench.py`` sizes it: 8 + 8 scans of 24,000 points (seeded
+    ``SyntheticSCN``, 64 per stream) in 302x480 images, a 16,384-point
+    budget, bfloat16, SCN m=16 with 7 planes, 4 pool threads per loader (the
+    shipped config's), the shipped 64-id SAM budget, VGI on
+    (``lambda_pc_mm`` 0.1, host VGI and host plans), and the EMA switch after
+    :data:`LOADER_PRE_EMA` iterations."""
+    from mopa_tpu_torch.config.xmuda import cfg
+
+    c = cfg.clone()
+    c.merge_from_file(str(ROOT / "configs" / "synthetic" / "mopa_smoke.yaml"))
+    c.TRAIN.BATCH_SIZE = TRAIN_BATCH
+    c.TPU.POINT_BUDGET = POINT_BUDGET
+    c.TPU.COMPUTE_DTYPE = "bfloat16"
+    c.TPU.SAM_MASK_BUDGET = 64
+    c.MODEL_3D.SCN.m = M
+    c.MODEL_3D.SCN.num_planes = NUM_PLANES
+    for d in (c.DATASET_SOURCE.SyntheticSCN, c.DATASET_TARGET.SyntheticSCN):
+        d.n_points = 24000
+        d.image_size = IMAGE_SIZE
+        d.length = 64
+    c.DATALOADER.NUM_WORKERS = 4
+    c.SCHEDULER.MAX_ITERATION = LOADER_PRE_EMA + LOADER_EMA
+    c.TRAIN.PC_MM.ema_start_iter = LOADER_PRE_EMA
+    c.RNG_SEED = 0
+    c.freeze()
+    return c
+
+
+def _kept(loader, keep: list):
+    """Iterate ``loader``, keeping its host batches in ``keep``."""
+    for batch in loader:
+        keep.append(batch)
+        yield batch
+
+
+def loader_streams(cfg, device, start: int, ema: bool, keep: dict):
+    """(source, target) ``device_prefetch`` streams of fresh loaders at
+    ``start``, as the train loop builds them: the source without the
+    teacher's inputs; the target with them only in the EMA phase
+    (``want_ema``), without ``seg_label``; the host batches of each go to
+    ``keep``."""
+    from mopa_tpu_torch.data.build import build_dataloader
+    from mopa_tpu_torch.train.common import device_prefetch
+
+    keep.update(source=[], target=[])
+    src = build_dataloader(cfg, "train", "source", start_iteration=start,
+                           want_ema=False)
+    trg = build_dataloader(cfg, "train", "target", start_iteration=start,
+                           want_ema=ema)
+    return (device_prefetch(_kept(src, keep["source"]), device,
+                            strip_ema=True),
+            device_prefetch(_kept(trg, keep["target"]), device,
+                            strip_ema=not ema, strip_keys=("seg_label",)))
+
+
+def prefetched_equal(batch, host, device, ema: bool, target: bool) -> None:
+    """Fails unless a prefetched batch equals, key by key and bit for bit,
+    its host batch sent by a plain ``device_batch`` after a
+    ``torch.cuda.synchronize()``."""
+    import torch
+
+    from mopa_tpu_torch.train.common import device_batch
+
+    torch.cuda.synchronize()
+    ref = device_batch(host, device, strip_ema=not (ema and target),
+                       strip_keys=("seg_label",) if target else ())
+    torch.cuda.synchronize()
+    if set(batch) != set(ref):
+        fail("prefetched batch keys {} != device_batch's {}".format(
+            sorted(batch), sorted(ref)))
+    for k, t in ref.items():
+        if batch[k].dtype != t.dtype or not torch.equal(batch[k], t):
+            fail("prefetched batch {} differs from device_batch".format(k))
+
+
+def loader_parts(records) -> dict:
+    """One batch's host milliseconds by part from :func:`timed_host_work`'s
+    records: VGI without its cat plan, the plans without their audits, the
+    audits."""
+    out = {"vgi_ms": 0.0, "plans_ms": 0.0, "audit_ms": 0.0}
+    audit = cat = 0.0
+    for tag, ms in records:
+        if tag == "audit":
+            audit += ms
+            out["audit_ms"] += ms
+        elif tag == "vgi":
+            out["vgi_ms"] += ms - cat
+        else:
+            out["plans_ms"] += ms - audit
+            cat = ms if tag == "hp_cat_" else 0.0
+            audit = 0.0
+    return out
+
+
+def loader_threads_end(timeout_s: float = 60.0) -> None:
+    """Waits for every loader and prefetch thread to end; fails after
+    ``timeout_s``."""
+    import threading
+
+    deadline = time.perf_counter() + timeout_s
+    for t in threading.enumerate():
+        if t.name.startswith(("mopa-loader", "mopa-prefetch")):
+            t.join(max(deadline - time.perf_counter(), 0.0))
+            if t.is_alive():
+                fail("thread {} still runs after its consumer stopped"
+                     .format(t.name))
+
+
+def drain_loader(cfg, domain: str, ema: bool) -> dict:
+    """One loader alone, without the step: :data:`LOADER_DRAIN` batches in
+    batches/s (the pool's fill included), and each batch's host time by
+    part: ``__getitem__`` on the pool, collate, and inside collate VGI, the
+    plans and the capacity audit (first 2 batches)."""
+    from mopa_tpu_torch.data import build
+
+    loader = build.build_dataloader(cfg, "train", domain, want_ema=ema)
+    per_batch, records, collate_ms = [], [], [0.0]
+    real_load, real_collate = build.DataLoader._load_batch, \
+        build.collate_padded
+
+    def load(self, *args, **kw):
+        del records[:]
+        t0 = time.perf_counter()
+        out = real_load(self, *args, **kw)
+        row = {"total_ms": (time.perf_counter() - t0) * 1e3,
+               "collate_ms": collate_ms[0]}
+        row["getitem_ms"] = row["total_ms"] - row["collate_ms"]
+        row.update(loader_parts(records))
+        per_batch.append(row)
+        return out
+
+    def collate(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_collate(*args, **kw)
+        collate_ms[0] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with timed_host_work(records), \
+            mock.patch.object(build.DataLoader, "_load_batch", load), \
+            mock.patch.object(build, "collate_padded", collate):
+        it = iter(loader)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_DRAIN):
+            next(it)
+        elapsed = time.perf_counter() - t0
+        it.close()
+        loader_threads_end()
+    return {"batches_per_s": LOADER_DRAIN / elapsed, "per_batch": per_batch}
+
+
+def loader_exception_fails(device) -> str:
+    """Fails unless an exception raised in a loader's pool reaches the
+    consumer of ``device_prefetch`` (within 60 s)."""
+    import threading
+
+    import numpy as np
+
+    from mopa_tpu_torch.data.build import DataLoader
+    from mopa_tpu_torch.data.synthetic import SyntheticSCN
+    from mopa_tpu_torch.train.common import device_prefetch
+
+    class Failing(SyntheticSCN):
+        def __getitem__(self, index):
+            if index == 3:
+                raise RuntimeError("sample 3 is unreadable")
+            return super().__getitem__(index)
+
+    loader = DataLoader(Failing(length=4, n_points=2000,
+                                image_size=(64, 48)),
+                        [np.arange(2), np.arange(2, 4)], 1024, num_workers=2)
+    seen = []
+
+    def consume():
+        try:
+            for _ in device_prefetch(loader, device):
+                pass
+        except RuntimeError as e:
+            seen.append(str(e))
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(60)
+    if not seen:
+        fail("an exception in the loader's pool did not reach the consumer")
+    return seen[0]
+
+
+_STATE_DICTS = ("params_2d", "batch_stats_2d", "params_3d", "batch_stats_3d",
+                "ema_params_2d", "ema_params_3d")
+
+
+def state_snapshot(state) -> dict:
+    """What a step's losses read of ``state``: copies of the nets' tensors
+    and of the EMA parameters, the step count and the generator's state
+    (the optimizers act after the losses)."""
+    return {"tensors": {name: {k: v.detach().clone()
+                               for k, v in getattr(state, name).items()}
+                        for name in _STATE_DICTS},
+            "step": state.step, "rng": state.rng.get_state()}
+
+
+def load_snapshot(state, snap: dict) -> None:
+    import torch
+
+    with torch.no_grad():
+        for name, tensors in snap["tensors"].items():
+            dst = getattr(state, name)
+            for k, v in tensors.items():
+                dst[k].copy_(v)
+    state.step = snap["step"]
+    state.rng.set_state(snap["rng"])
+
+
+def replay_agrees(twin, check: dict, device) -> float:
+    """Replays one loader-fed iteration on the second nets (``twin``: state
+    and steps) from the state it started from, fed ``device_batch`` of its
+    host batches; fails unless every loss agrees within
+    :data:`LOSS_RTOL` and ``vgi_inserted`` exactly. Returns the largest
+    relative difference of a loss."""
+    import torch
+
+    from mopa_tpu_torch.train.common import device_batch
+
+    ema = check["ema"]
+    load_snapshot(twin["state"], check["snapshot"])
+    src = device_batch(check["host_source"], device, strip_ema=True)
+    trg = device_batch(check["host_target"], device, strip_ema=not ema,
+                       strip_keys=("seg_label",))
+    _, metrics = twin["steps"][ema](twin["state"], src, trg)
+    ref = _losses(metrics)
+    torch.cuda.synchronize()
+    got, worst = check["losses"], 0.0
+    for k, r in ref.items():
+        if k == "vgi_inserted":
+            if got[k] != r:
+                fail("loader-fed iteration {}: {} inserted points, {} on "
+                     "its replay".format(check["iteration"], got[k], r))
+        elif "loss" in k:
+            diff = abs(got[k] - r) / max(abs(r), 1e-6)
+            worst = max(worst, diff)
+            if diff > LOSS_RTOL:
+                fail("loader-fed iteration {}: {} {} against {} on its "
+                     "replay from device_batch".format(
+                         check["iteration"], k, got[k], r))
+    return worst
+
+
+def check_iteration(i: int, losses: dict) -> None:
+    import torch
+
+    if not all(torch.isfinite(torch.tensor(list(losses.values())))):
+        fail("loader-fed iteration {}: non-finite loss {}".format(i, losses))
+    if not ("pc_mm_loss" in losses and losses["vgi_inserted"] > 0):
+        fail("loader-fed iteration {}: no VGI loss or no inserted point: {}"
+             .format(i, losses))
+
+
+def loader_phase(device, prebuilt: dict) -> dict:
+    """Phase 9: the shipped MoPA step fed by the port's loaders
+    (``data.build``) through ``device_prefetch``, across the EMA switch, as
+    the train loop runs it; ``prebuilt`` holds phases 7 and 8's reports."""
+    import torch
+
+    from mopa_tpu_torch.models.scn_unet import capacity_schedule
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.train import trainer
+    from mopa_tpu_torch.train.common import is_ema_key
+
+    cfg = smoke_cfg()
+    report = {"exception": loader_exception_fails(device)}
+    print("loader exception reached the consumer: {}".format(
+        report["exception"]), flush=True)
+
+    def nets():
+        models = trainer.build_models(cfg, device=device, seed=0)
+        return {"state": trainer.create_train_state(cfg, models),
+                "steps": {ema: trainer.make_train_step(
+                    cfg, models, with_pl=True, with_ema=ema)
+                    for ema in (False, True)}}
+
+    main, twin = nets(), nets()
+    state, steps = main["state"], main["steps"]
+    n = len(conv_shapes())
+    keep, its, checks, streams, window = {}, [], [], None, {}
+    total = LOADER_PRE_EMA + LOADER_EMA
+    for i in range(total):
+        ema = i >= LOADER_PRE_EMA
+        j, length = (i - LOADER_PRE_EMA, LOADER_EMA) if ema \
+            else (i, LOADER_PRE_EMA)
+        first, traced = j == 0, j == length - 1
+        windowed = length - 1 - LOADER_WINDOW <= j < length - 1
+        if first:
+            if streams is not None:
+                for s in streams:
+                    s.close()
+            streams = loader_streams(cfg, device, i, ema, keep)
+        step = steps[ema]
+        scc.reset_launch_counts()
+        if not windowed:
+            torch.cuda.synchronize()
+        held = {}
+
+        def iteration():
+            t0 = time.perf_counter()
+            held["src"] = next(streams[0])
+            t1 = time.perf_counter()
+            held["trg"] = next(streams[1])
+            t2 = time.perf_counter()
+            held["out"] = step(held["state"], held["src"], held["trg"])
+            if not windowed:
+                torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if windowed:
+                window.setdefault(ema, t0)
+            return {"ms": (t3 - t0) * 1e3, "wait_source_ms": (t1 - t0) * 1e3,
+                    "wait_target_ms": (t2 - t1) * 1e3,
+                    "step_ms": (t3 - t2) * 1e3}
+
+        snapshot = state_snapshot(state) if first or windowed else None
+        held["state"] = state
+        row = {"iteration": i, "ema": ema, "traced": traced,
+               "windowed": windowed}
+        if traced:
+            stages = trainer.TRAIN_STAGES + (trainer.TEACHER_STAGES if ema
+                                              else ())
+            timing = {}
+            prof = profile_call(lambda: timing.update(iteration()), stages)
+            row.update(timing)
+            row["profile"] = {k: prof.get(k) for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share")}
+            row["profile"]["train/decode"] = _stage(prof, "train/decode")
+        else:
+            row.update(iteration())
+        state, metrics = held["out"]
+        src, trg = held["src"], held["trg"]
+        launches = dict(scc.launches)
+        want = {K1: (2 if ema else 1) * n, K2_DFEATS: n - 1, K2_DW: n,
+                P1: 0, P2: 0}
+        if launches != want:
+            fail("loader-fed iteration {} launched {}, expected {}".format(
+                i, launches, want))
+        tensor_core_routes("loader-fed iteration {}".format(i))
+        # the teacher's inputs ride the target stream of the EMA phase only
+        if any(map(is_ema_key, src)) or ema != any(map(is_ema_key, trg)) \
+                or (ema and not ("hp_ori_rankn" in trg and "ema_map" in trg)):
+            fail("loader-fed iteration {} (EMA phase {}): source keys {}, "
+                 "target keys {}".format(i, ema, sorted(src), sorted(trg)))
+        if snapshot is not None:
+            checks.append({"iteration": i, "ema": ema, "snapshot": snapshot,
+                           "host_source": keep["source"][j],
+                           "host_target": keep["target"][j],
+                           "metrics": metrics, "row": row})
+        if windowed:
+            # no read of the card until the window ends: the losses wait
+            del held, src, trg
+            its.append(row)
+            if j == length - 2:
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - window.pop(ema)) * 1e3
+                key = "window_ema" if ema else "window_pre_ema"
+                report[key] = {"iterations": LOADER_WINDOW, "ms": ms,
+                               "per_iteration_ms": ms / LOADER_WINDOW}
+                print("loader-fed {}: {}".format(key, report[key]),
+                      flush=True)
+                for c in checks:
+                    if c["row"]["windowed"] and "losses" not in c["row"]:
+                        c["row"]["losses"] = _losses(c["metrics"])
+                        check_iteration(c["iteration"], c["row"]["losses"])
+            continue
+        losses = row["losses"] = _losses(metrics)
+        check_iteration(i, losses)
+        if first:
+            for name, batch, target in (("source", src, False),
+                                        ("target", trg, True)):
+                prefetched_equal(batch, keep[name][0], device, ema, target)
+            pairs = list(zip(keep["source"][:2], keep["target"][:2]))
+            row["audit"] = audit_host_plans(
+                pairs, capacity_schedule(POINT_BUDGET, NUM_PLANES))
+            if not ema:
+                row["plans_agree"] = host_plans_agree(*pairs[0], device)
+        its.append(row)
+        print("loader-fed iteration {} ({}): {:.2f} ms, waits source {:.2f} "
+              "/ target {:.2f} ms, step {:.2f} ms, {}".format(
+                  i, "EMA" if ema else "pre-EMA", row["ms"],
+                  row["wait_source_ms"], row["wait_target_ms"],
+                  row["step_ms"], losses), flush=True)
+    for s in streams:
+        s.close()
+    del held, src, trg
+    loader_threads_end()
+    # the replays, on the second nets, after the loop
+    for c in checks:
+        c["losses"] = c["row"]["losses"]
+        c["row"]["replay_max_rel_diff"] = replay_agrees(twin, c, device)
+    report["replay_max_rel_diff"] = max(
+        c["row"]["replay_max_rel_diff"] for c in checks)
+    print("loader-fed losses vs their replays on device_batch: {} "
+          "iterations, largest relative difference {:.3e}".format(
+              len(checks), report["replay_max_rel_diff"]), flush=True)
+    del checks
+    report["iterations"] = its
+    for ema, key, ref in ((False, "pre_ema", "mopa"), (True, "ema",
+                                                       "mopa_ema")):
+        rows = [r for r in its if r["ema"] == ema][1:]
+        timed = [r for r in rows if not (r["traced"] or r["windowed"])]
+        traced = [r for r in rows if r["traced"]][0]
+        report[key] = {
+            "timed_iterations": len(timed),
+            "iteration_median_ms": statistics.median(r["ms"] for r in timed),
+            "window_per_iteration_ms": report["window_" + key][
+                "per_iteration_ms"],
+            "wait_source_median_ms": statistics.median(
+                r["wait_source_ms"] for r in timed),
+            "wait_target_median_ms": statistics.median(
+                r["wait_target_ms"] for r in timed),
+            "wait_target_window_median_ms": statistics.median(
+                r["wait_target_ms"] for r in rows if r["windowed"]),
+            "step_in_loop_median_ms": statistics.median(
+                r["step_ms"] for r in timed),
+            "prebuilt_step_median_ms": prebuilt[ref]["warm_step_median_ms"],
+            "device_idle_share": traced["profile"]["device_idle_share"],
+            "device_busy_ms": traced["profile"]["device_busy_ms"],
+            "decode": traced["profile"]["train/decode"],
+            "prebuilt_decode": _stage(prebuilt[ref]["profile"],
+                                      "train/decode")}
+        print("loader-fed {}: {}".format(key, report[key]), flush=True)
+    del main, twin, state, steps
+    torch.cuda.empty_cache()
+    report["drain"] = {
+        "source": drain_loader(cfg, "source", False),
+        "target": drain_loader(cfg, "target", False),
+        "target_ema": drain_loader(cfg, "target", True)}
+    for name, d in report["drain"].items():
+        print("loader {} alone: {:.3f} batches/s; per batch (ms): {}".format(
+            name, d["batches_per_s"], d["per_batch"]), flush=True)
+    return report
+
+
 def p2_inputs(s: int, v: int, m: int, d: int, seed: int, device,
               shuffled: bool = False):
     """Seeded P2 inputs on the card: a normal (s, v, d) bf16 table, ranks
@@ -1496,7 +1970,12 @@ def main() -> None:
         torch.cuda.empty_cache()
         lap(key)
 
-    # -- phase 9: summary lines; each conv kernel at the shapes the shipped
+    # -- phase 9: the shipped MoPA step fed by the loaders, across the switch
+    report["loader"] = loader_phase(device, report)
+    torch.cuda.empty_cache()
+    lap("loader")
+
+    # -- phase 10: summary lines; each conv kernel at the shapes the shipped
     # step gives it (the fused 8 + 8 + 8-scan plan, bfloat16) with its
     # launches in phase 7, each probe kernel at the probe's
     train_launches = report["mopa"]["launches"]

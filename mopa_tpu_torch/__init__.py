@@ -6,10 +6,13 @@ does. This package imports ``torch`` and ``numpy`` only: never ``jax``, ``flax``
 ``optax`` or any ``mopa_tpu`` module.
 
 Covered so far: the eval forward of the UNetResNet34 + SCN SparseUNet pair
-(``data.utils.validate.make_eval_step``) and the MoPA train step without VGI,
-before and after the EMA switch (``train.trainer.make_train_step``), with the
-submanifold 3x3x3 conv forward and backward as hand-written sm_90a CUDA
-kernels (``ops.sparse_conv_cuda``; tensor cores in bfloat16) and the gather
-probes of ``tools.gather_micro`` (``ops.gather``).
+(``data.utils.validate.make_eval_step``); the shipped MoPA train step, VGI
+on host-built plans included, before and after the EMA switch
+(``train.trainer.make_train_step``), with the submanifold 3x3x3 conv forward
+and backward as hand-written sm_90a CUDA kernels (``ops.sparse_conv_cuda``;
+tensor cores in bfloat16) and the gather probes of ``tools.gather_micro``
+(``ops.gather``); and the data path that feeds the step: the datasets, the
+threaded loaders of ``data.build.build_dataloader`` and the pinned, side-
+stream ``train.common.device_prefetch``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

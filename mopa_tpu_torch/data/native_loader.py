@@ -1,7 +1,9 @@
 """ctypes binding of the port's host-side voxel-plan builder
 (``mopa_tpu_torch/csrc/host_plan.cpp``, a copy of the JAX package's
 ``mopa_build_plan3``; the port of ``mopa_tpu/data/native_loader.py::
-build_plan_arrays``).
+build_plan_arrays``), and the raw scan reads of SemanticKITTI
+(``read_scan``, ``read_labels``: numpy file reads, the JAX module's own
+fallback for its C++ readers).
 
 The library is compiled at first use by the host C++ compiler (``$CXX``, else
 ``c++``: ``-O3 -std=c++17 -shared -fPIC``) into ``mopa_tpu_torch/_build/``,
@@ -29,6 +31,10 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 # 16,384 points need ~6k (unrotated) to ~10k (augmented). On overflow the
 # builder returns -2 and the batch ships without that group's plan keys.
 FIXUP_BUDGET = 16384
+
+# Rows the JAX package's C++ scan readers hold; a longer file raises here
+# where they would cut it short.
+SCAN_CAPACITY = 200000
 
 _LIB = None
 
@@ -138,3 +144,24 @@ def build_plan_arrays(coords: np.ndarray, valid: np.ndarray,
             "downe": downe[:int(caps[1:].sum())],
             "f2c": f2c[:sumf], "upoffn": upoffn[:(sumf + 1) // 2],
             "fix": fix}
+
+
+def _check_rows(path: str, n: int) -> None:
+    if n > SCAN_CAPACITY:
+        raise ValueError("{} holds {} rows, more than the capacity {}".format(
+            path, n, SCAN_CAPACITY))
+
+
+def read_scan(path: str) -> np.ndarray:
+    """A velodyne ``.bin`` scan as (N, 4) float32 x, y, z, remission."""
+    scan = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    _check_rows(path, scan.shape[0])
+    return scan
+
+
+def read_labels(path: str) -> np.ndarray:
+    """A SemanticKITTI ``.label`` file as (N,) int32 semantic ids (the
+    lower 16 bits; the upper hold the instance)."""
+    lab = np.fromfile(path, dtype=np.uint32)
+    _check_rows(path, lab.shape[0])
+    return (lab & 0xFFFF).astype(np.int32)

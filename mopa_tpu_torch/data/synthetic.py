@@ -1,5 +1,7 @@
-"""Seeded synthetic LiDAR + camera batches, eval and train (port of the scan
-geometry of ``mopa_tpu/data/synthetic.py::SyntheticSCN``).
+"""Seeded synthetic LiDAR + camera data: the dataset ``SyntheticSCN`` (port
+of ``mopa_tpu/data/synthetic.py::SyntheticSCN``, which the loaders of
+``data.build`` read), and ready-collated eval and train batches built from
+the same scan geometry.
 
 A scan is a ring-structured ground plane (fixed elevation angles hit the
 plane at fixed ranges, like a LiDAR) plus random upright boxes in the front
@@ -19,6 +21,10 @@ to insert, the camera) and any batch its host-built voxel plans
 from __future__ import annotations
 
 import numpy as np
+
+from mopa_tpu_torch.data.collate import _lexkey
+from mopa_tpu_torch.data.utils.augmentation_3d import augment_and_scale_3d
+from mopa_tpu_torch.data.utils.inputs import check_scn_inputs
 
 # Seed base of the reference's per-index raw scans (SyntheticSCN.__getitem__).
 SCAN_SEED = 20260817
@@ -104,11 +110,6 @@ def eval_sample(index: int, n_points: int = 24000, image_size=(480, 302),
             "coords": coords[inside].astype(np.int64),
             "seg_label": labels[inside], "points": points[inside],
             "g_mask": g_mask[inside]}
-
-
-def _lexkey(coords: np.ndarray) -> np.ndarray:
-    c = np.asarray(coords, np.int64)
-    return (c[:, 0] * 4096 + c[:, 1]) * 4096 + c[:, 2]
 
 
 def collate_eval(samples, point_budget: int) -> dict:
@@ -361,3 +362,231 @@ def add_host_plans(batch: dict, host_plans: dict) -> dict:
                                  "hp_" + pre, pre + "coords",
                                  pre + "point_valid")
     return batch
+
+
+class SyntheticSCN:
+    """A dataset of seeded synthetic scans in the per-sample schema of the
+    real datasets (KITTI flavour: front-view scans), so that collate, the
+    loaders and the train step run without dataset files.
+
+    The raw scan of an index (:func:`synthetic_scan`, points in the image
+    of :func:`project`, a uniform random image) is a fixed function of the
+    index and cached; each ``__getitem__`` draws its augmentation afresh
+    from a generator seeded by ``rng`` (or ``seed``) and the index: image
+    flip, the 3D rotation, flips and translation of
+    :func:`augment_and_scale_3d`. Flags add the target domain's inputs:
+    offline pseudo labels (30 % dropped), SAM mask ids in
+    [-1, ``sam_mask_budget``), the EMA teacher's unaugmented view
+    (``ori_*``, ``ema_map``) and the raw inputs of VGI (the scan in meters,
+    its ground mask, one object, or ``n_objs`` with ``multi_objs``, the
+    camera). ``learnable`` paints class colours and gives each class its own
+    slab thickness, so that a trained model can reach a high mIoU.
+    ``output_orig`` (eval) adds the points in meters and the restore mask.
+    Only the SCN backbone's inputs are ported (:func:`check_scn_inputs`).
+    """
+
+    class_names = ["car", "truck", "bike", "person", "road",
+                   "parking", "sidewalk", "building", "nature", "other-objects"]
+
+    def __init__(self, split=("train",), length=64, n_points=8192,
+                 image_size=(480, 302), num_classes=10, scale=20,
+                 full_scale=4096, noisy_rot=0.1, flip_y=0.5, rot_z=6.2831,
+                 transl=True, fliplr=0.5, color_jitter=None, output_orig=False,
+                 with_pseudo_labels=False, with_sam_mask=False,
+                 with_vgi=False, with_ema=False, sam_mask_budget=16,
+                 multi_objs=False, n_objs=3, backbone="SCN", proj_W=256,
+                 proj_H=32, fov_up=0.05235, fov_down=-0.43633, seed=0,
+                 with_depth_label=False, learnable=False, rng=None,
+                 **_unused):
+        check_scn_inputs(backbone, with_depth_label)
+        self.length = length
+        self.n_points = n_points
+        self.image_size = tuple(image_size)  # (W, H)
+        self.num_classes = num_classes
+        self.class_names = self.class_names[:num_classes]
+        self.scale = scale
+        self.full_scale = full_scale
+        self.noisy_rot = noisy_rot
+        self.flip_y = flip_y
+        self.rot_z = rot_z
+        self.transl = transl
+        self.fliplr = fliplr
+        self.output_orig = output_orig
+        self.with_pseudo_labels = with_pseudo_labels
+        self.with_sam_mask = with_sam_mask
+        self.with_vgi = with_vgi
+        self.with_ema = with_ema
+        self.sam_mask_budget = sam_mask_budget
+        self.learnable = learnable
+        self.multi_objs = multi_objs
+        self.n_objs = n_objs
+        self.rng = rng or np.random.default_rng(seed)
+        self._scan_cache = {}
+
+    def __len__(self):
+        return self.length
+
+    def _scan(self, rng):
+        """(points, labels, ground mask) of one raw scan."""
+        if not self.learnable:
+            return synthetic_scan(rng, self.n_points, self.num_classes)
+        # learnable: each box is a slab of class-specific thickness at a
+        # fixed clearance over the ground, with a road "shadow" disk under
+        # its footprint
+        n = self.n_points
+        n_rings = 48
+        per = max(n // 2 // n_rings, 1)
+        thetas = np.linspace(-0.436, -0.035, n_rings)  # -25 .. -2 deg
+        rr = np.clip(1.7 / np.tan(-thetas), 0.0, 60.0)
+        az = rng.uniform(-0.5, 0.5, (n_rings, per))
+        gx = (rr[:, None] * np.cos(az)).ravel()
+        gy = (rr[:, None] * np.sin(az)).ravel()
+        n_ground = gx.shape[0]
+        gz = rng.normal(-1.7, 0.01, n_ground)
+        pts = [np.stack([gx, gy, gz], 1)]
+        labs = [np.full(n_ground, 4)]  # road
+        remaining = n - n_ground
+        box_classes = [c for c in range(self.num_classes) if c != 4]
+        while remaining > 0:
+            m = min(remaining, int(rng.integers(200, 512)))
+            cx = rng.uniform(4, 45)
+            cy = cx * rng.uniform(-0.4, 0.4)
+            c = int(rng.choice(box_classes))
+            sx, sy = rng.uniform(0.15, 0.45, 2)
+            thick = 0.1 * (c + 1)
+            ms = max(m // 4, 16)
+            pts.append(np.stack([cx + rng.uniform(-sx, sx, ms),
+                                 cy + rng.uniform(-sy, sy, ms),
+                                 rng.normal(-1.7, 0.01, ms)], 1))
+            labs.append(np.full(ms, 4))
+            remaining -= ms
+            m = max(min(m, remaining), 16)
+            pts.append(np.stack([cx + rng.uniform(-sx, sx, m),
+                                 cy + rng.uniform(-sy, sy, m),
+                                 -1.2 + rng.uniform(0.0, thick, m)], 1))
+            labs.append(np.full(m, c))
+            remaining -= m
+        points = np.concatenate(pts).astype(np.float32)
+        return (points, np.concatenate(labs).astype(np.int64),
+                np.arange(points.shape[0]) < n_ground)
+
+    def _raw(self, index):
+        """The cached raw scan of ``index``: points, labels and ground mask
+        in the image, their pixels, the lidar -> image matrix, the image."""
+        if index not in self._scan_cache:
+            scan_rng = np.random.default_rng(
+                np.random.SeedSequence([SCAN_SEED, index]))
+            pts, labs, g_mask = self._scan(scan_rng)
+            img_points, keep = project(pts, self.image_size)
+            w, h = self.image_size
+            image = scan_rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+            self._scan_cache[index] = (
+                pts[keep], labs[keep], g_mask[keep], img_points[keep],
+                lidar_projection(self.image_size), image)
+        return self._scan_cache[index]
+
+    def __getitem__(self, index):
+        rng = np.random.default_rng(
+            np.random.SeedSequence([int(self.rng.integers(1 << 30)), index]))
+        pts_c, labs_c, gm_c, ipts_c, proj_matrix, img_c = self._raw(index)
+        points, labels, g_mask = pts_c.copy(), labs_c.copy(), gm_c.copy()
+        image = img_c.copy()
+        w, h = self.image_size
+
+        out = {}
+        ori_points = points.copy()
+        img_indices = np.floor(ipts_c).astype(np.int64)
+        img_indices[:, 0] = np.clip(img_indices[:, 0], 0, h - 1)
+        img_indices[:, 1] = np.clip(img_indices[:, 1], 0, w - 1)
+
+        if self.learnable:
+            # class colours in 3x3 patches at the points' pixels
+            palette = (np.arange(1, self.num_classes + 1)[:, None]
+                       * np.asarray([[0.09, 0.17, 0.05]])) % 1.0
+            for dr in (-1, 0, 1):
+                for dc in (-1, 0, 1):
+                    rr = np.clip(img_indices[:, 0] + dr, 0, h - 1)
+                    cc = np.clip(img_indices[:, 1] + dc, 0, w - 1)
+                    image[rr, cc] = (0.8 * palette[labels]
+                                     + 0.2 * image[rr, cc]).astype(np.float32)
+
+        if self.with_ema:
+            out["ori_img"] = image.copy()
+            ori_points_img = img_indices.copy()
+
+        if rng.random() < self.fliplr:
+            image = np.ascontiguousarray(np.fliplr(image))
+            img_indices = img_indices.copy()
+            img_indices[:, 1] = image.shape[1] - 1 - img_indices[:, 1]
+
+        coords, aug_points = augment_and_scale_3d(
+            points, self.scale, self.full_scale, rng=rng,
+            noisy_rot=self.noisy_rot, flip_y=self.flip_y, rot_z=self.rot_z,
+            transl=self.transl)
+        coords = coords.astype(np.int64)
+        idxs = (coords.min(1) >= 0) * (coords.max(1) < self.full_scale)
+
+        out.update({
+            "img": image,
+            "img_indices": img_indices[idxs],
+            "coords": coords[idxs],
+            "aug_points": aug_points[idxs],
+            "feats": np.ones([int(idxs.sum()), 1], np.float32),
+            "seg_label": labels[idxs],
+            "lidar_path": "synthetic/{:06d}.bin".format(index),
+            "scan_pth": "synthetic/{:06d}.bin".format(index),
+        })
+
+        if self.with_pseudo_labels:
+            ps = labels.copy()
+            ps[rng.random(ps.shape[0]) < 0.3] = -100
+            out["pseudo_label_2d"] = ps[idxs]
+            out["pseudo_label_3d"] = ps[idxs]
+            out["ori_pseudo_label_3d"] = ps
+
+        if self.with_sam_mask:
+            out["sam_mask"] = rng.integers(-1, self.sam_mask_budget,
+                                           (h, w)).astype(np.int32)
+
+        if self.output_orig:
+            out["points_xyz"] = points[idxs].astype(np.float32)
+            out["orig_seg_label"] = labels
+            out["orig_points_idx"] = idxs
+
+        if self.with_ema:
+            ori_coords, _ = augment_and_scale_3d(ori_points, self.scale,
+                                                 self.full_scale, rng=rng)
+            ori_idxs = ((ori_coords.min(1) >= 0)
+                        * (ori_coords.max(1) < self.full_scale))
+            out["ori_img_indices"] = ori_points_img[ori_idxs]
+            out["ori_coords"] = ori_coords[ori_idxs].astype(np.int64)
+            out["ori_feats"] = np.ones([int(ori_idxs.sum()), 1], np.float32)
+            ori_pos = np.cumsum(ori_idxs) - 1
+            out["ema_map"] = np.where(ori_idxs, ori_pos,
+                                      -1)[idxs].astype(np.int32)
+
+        if self.with_vgi:
+            obj_ls, lab_ls = [], []
+            for k in range(self.n_objs if self.multi_objs else 1):
+                m = int(rng.integers(96, 256))
+                lab = 3 - k % 3
+                c = np.array([rng.uniform(5, 12), rng.uniform(-2, 2),
+                              rng.uniform(-1.6, -1.0)])
+                obj = (c + rng.uniform(-0.4, 0.4, (m, 3))).astype(np.float32)
+                if self.learnable:
+                    # the object obeys the slab-thickness rule too
+                    obj[:, 2] = (obj[:, 2].min()
+                                 + rng.uniform(0.0, 0.1 * (lab + 1), m)
+                                 ).astype(np.float32)
+                obj_ls.append(np.concatenate(
+                    [obj, rng.uniform(0, 1, (m, 1)).astype(np.float32)], 1))
+                lab_ls.append(np.full(m, lab))
+            out["ori_obj_pc"] = obj_ls
+            out["ori_obj_label"] = lab_ls
+            out["ori_points"] = np.concatenate(
+                [ori_points, np.ones((ori_points.shape[0], 1), np.float32)],
+                1)
+            out["ori_img_size"] = np.asarray(self.image_size, np.int32)
+            out["proj_matrix"] = proj_matrix[:3, :4]
+            out["g_indices"] = g_mask
+        return out

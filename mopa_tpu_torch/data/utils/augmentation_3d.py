@@ -1,10 +1,62 @@
-"""Spherical range projection with occlusion removal, in numpy (the port of
-``mopa_tpu/data/utils/augmentation_3d.py::occlusion_detector`` and
-``range_projection``, which host-side VGI uses)."""
+"""Host-side 3D augmentation and spherical range projection with occlusion
+removal, in numpy (the port of ``mopa_tpu/data/utils/augmentation_3d.py``:
+``make_rotation`` and ``augment_and_scale_3d``, which the datasets call, and
+``occlusion_detector`` and ``range_projection``, which host-side VGI uses).
+
+Randomness comes from the caller's ``np.random.Generator``; the same
+generator state gives the JAX package's values.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def make_rotation(rng: np.random.Generator, noisy_rot=0.0, flip_x=0.0,
+                  flip_y=0.0, rot_z=0.0):
+    """The reference's noisy rotation, axis flips and z rotation as one 3x3
+    float32 matrix, or None when every option is off."""
+    if not (noisy_rot > 0 or flip_x > 0 or flip_y > 0 or rot_z > 0):
+        return None
+    rot = np.eye(3, dtype=np.float32)
+    if noisy_rot > 0:
+        rot += rng.standard_normal((3, 3)).astype(np.float32) * noisy_rot
+    if flip_x > 0:
+        rot[0][0] *= int(rng.integers(0, 2)) * 2 - 1
+    if flip_y > 0:
+        rot[1][1] *= int(rng.integers(0, 2)) * 2 - 1
+    if rot_z > 0:
+        theta = float(rng.random()) * rot_z
+        z_rot = np.array([
+            [np.cos(theta), -np.sin(theta), 0],
+            [np.sin(theta), np.cos(theta), 0],
+            [0, 0, 1],
+        ], dtype=np.float32)
+        rot = rot.dot(z_rot)
+    return rot
+
+
+def augment_and_scale_3d(points, scale, full_scale, rng=None, noisy_rot=0.0,
+                         flip_x=0.0, flip_y=0.0, rot_z=0.0, transl=False):
+    """Augment points (meters) and scale them to voxel coordinates.
+
+    Rotates and flips (:func:`make_rotation`), multiplies by ``scale`` (20:
+    5 cm voxels), shifts to the positive octant and, with ``transl``, by a
+    random offset that keeps the scan inside ``full_scale``. ``points`` is
+    one (N, 3) array (the JAX function's list form, one draw shared by
+    several arrays, has no caller in the port: host VGI draws its own).
+    Returns (coords float, rotated points); the caller casts and drops
+    coordinates outside the field."""
+    rng = rng or np.random.default_rng()
+    rot = make_rotation(rng, noisy_rot, flip_x, flip_y, rot_z)
+    pts = points.dot(rot) if rot is not None else points
+    coords = np.round(pts * scale)
+    coords -= coords.min(0)
+    if transl:
+        offset = np.clip(full_scale - coords.max(0) - 0.001, a_min=0,
+                         a_max=None) * rng.random(3)
+        coords += offset
+    return coords, pts
 
 
 def occlusion_detector(proj_yx: np.ndarray, depth: np.ndarray) -> np.ndarray:
