@@ -119,7 +119,37 @@ Phases, in order; any failure exits non-zero:
    ``train/decode`` span of the traced iteration, and each loader alone
    (batches/s, host ms per batch by part). An exception raised in a
    loader's pool must reach the consumer.
-10. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
+10. The training and eval drivers at full width, as a user runs them
+   (:func:`driver_cfg`: :func:`smoke_cfg` with the EMA phase from iteration
+   2, checkpoints every 2 iterations in a ring of 2, validation every 4 on
+   a val stream of 8 scans at ``VAL.BATCH_SIZE`` 1, outputs in a temporary
+   directory deleted at the end). Run A: ``train.common.train`` to
+   iteration 4, with launch counts reset just before and read just after
+   (K1 2 x 14 + 2 x 28 + 8 x 14 for the validation, ``d_feats`` 4 x 13,
+   ``d_w`` 4 x 14, all on the tensor-core route), every logged loss finite
+   with ``pc_mm_loss``, the checkpoints of iterations 2 and 4 with their
+   pointers and rings, ``val_class_iou.xlsx`` read back with the logged
+   IoUs, no loader or prefetch thread alive after ``train()`` returns.
+   The resume: ``model_*_000004.pth`` loaded into fresh nets through
+   ``trainer.CheckpointAdapter`` equals run A's returned state bit for bit
+   (parameters, batch-norm buffers, EMA, Adam moments and steps, the update
+   counts and next learning rates, ``step``). Run B: ``train()`` on the
+   same directory to iteration 6 resumes at 4 in the EMA phase (its train
+   loaders built at 4, the target's with the teacher's inputs; 2 x 28 K1
+   launches and the validation's), ends at step 6 with
+   ``model_*_000006.pth``, and the ring keeps 2 files. Then
+   ``test.test.test_model`` on run B's checkpoints with a pseudo-label
+   directory: its IoUs within 1e-3 of run B's last validation, one
+   pseudo-label file per scan with the reference's keys. Then the four
+   CLIs as subprocesses on ``configs/synthetic/mopa_smoke.yaml`` at its own
+   size (``train_xmuda_mopa``, ``train_xmuda``, ``train_baseline`` without
+   the target losses, then ``test.test`` on the MoPA run's directory):
+   each must exit 0 and leave its log and checkpoints. Reported: each
+   iteration's ``time`` meter and the medians without each loader build's
+   first iteration, beside phase 9's loader-fed medians; each
+   validation's seconds and ms per scan; checkpoint save ms and MiB per
+   stream; load ms; each CLI's wall seconds.
+11. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
    and ``kernel_route`` the conv kernels' route on the main path, whose
    launches are phase 7's), the card line, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -1648,6 +1678,412 @@ def loader_phase(device, prebuilt: dict) -> dict:
     return report
 
 
+DRIVER_A, DRIVER_B = 4, 6  # MAX_ITERATION of phase 10's runs A and B
+DRIVER_EMA_START = 2
+DRIVER_VAL_SCANS = 8
+IOU_TOL = 1e-3  # test_model's IoUs against run B's last validation
+CLI_TIMEOUT_S = 600
+SMOKE_YAML = "configs/synthetic/mopa_smoke.yaml"
+
+
+def driver_cfg(max_iteration: int):
+    """Phase 10's config: :func:`smoke_cfg` (production shapes) run to
+    ``max_iteration``, the EMA phase from iteration 2, checkpoints every 2
+    iterations in a ring of 2, validation every 4 iterations on a val
+    stream of :data:`DRIVER_VAL_SCANS` scans at the shipped
+    ``VAL.BATCH_SIZE`` 1 (the target's ``SyntheticSCN`` length, so the
+    target's train stream has these 8 scans too)."""
+    c = smoke_cfg().clone()
+    c.SCHEDULER.MAX_ITERATION = max_iteration
+    c.TRAIN.PC_MM.ema_start_iter = DRIVER_EMA_START
+    c.TRAIN.CHECKPOINT_PERIOD = 2
+    c.TRAIN.MAX_TO_KEEP = 2
+    c.TRAIN.LOG_PERIOD = 1
+    c.VAL.PERIOD = 4
+    c.VAL.BATCH_SIZE = 1
+    c.DATASET_TARGET.SyntheticSCN.length = DRIVER_VAL_SCANS
+    c.freeze()
+    return c
+
+
+class DriverProbe:
+    """Records what ``train()`` and ``test_model()`` do, by wrapping the
+    functions they call: each iteration's metrics and ``time`` meter
+    (``MetricLogger.update`` with ``total_loss``), each checkpoint save
+    (ms, MiB) and load (ms), each validation (s, scans) and each loader
+    built (mode, domain, start, ``want_ema``)."""
+
+    def __init__(self):
+        self.iterations, self.saves, self.loads = [], [], []
+        self.validations, self.loaders = [], []
+        self._stack = ExitStack()
+
+    def __enter__(self):
+        import torch
+
+        from mopa_tpu_torch.common import checkpoint, metric_logger
+        from mopa_tpu_torch.data.utils import validate as val_mod
+        from mopa_tpu_torch.test import test as test_mod
+        from mopa_tpu_torch.train import common
+
+        real_update = metric_logger.MetricLogger.update
+        real_save = checkpoint.CheckpointerV2.save
+        real_load = checkpoint.Checkpointer.load
+        real_validate = val_mod.validate
+        real_build = common.build_dataloader
+
+        def update(logger, **kw):
+            if "total_loss" in kw:
+                self.iterations.append(
+                    {k: float(v) for k, v in kw.items()})
+            return real_update(logger, **kw)
+
+        def save(ck, name, tag=True, **kw):
+            t0 = time.perf_counter()
+            path = real_save(ck, name, tag=tag, **kw)
+            self.saves.append({"stream": ck.postfix, "name": name,
+                               "ms": (time.perf_counter() - t0) * 1e3,
+                               "mib": os.path.getsize(path) / 2 ** 20})
+            return path
+
+        def load(ck, path=None, resume=True, resume_states=True):
+            t0 = time.perf_counter()
+            out = real_load(ck, path, resume=resume,
+                            resume_states=resume_states)
+            torch.cuda.synchronize()
+            if out:
+                self.loads.append({"stream": ck.postfix,
+                                   "ms": (time.perf_counter() - t0) * 1e3})
+            return out
+
+        def validate(cfg, models, loader, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_validate(cfg, models, loader, *a, **kw)
+            torch.cuda.synchronize()
+            self.validations.append({"s": time.perf_counter() - t0,
+                                     "scans": len(loader.dataset)})
+            return out
+
+        def build_dataloader(cfg, mode="train", domain="source",
+                             start_iteration=0, want_ema=None):
+            self.loaders.append((mode, domain, start_iteration, want_ema))
+            return real_build(cfg, mode, domain, start_iteration, want_ema)
+
+        for target, name, fn in (
+                (metric_logger.MetricLogger, "update", update),
+                (checkpoint.CheckpointerV2, "save", save),
+                (checkpoint.Checkpointer, "load", load),
+                (val_mod, "validate", validate),
+                (test_mod, "validate", validate),
+                (common, "build_dataloader", build_dataloader)):
+            self._stack.enter_context(mock.patch.object(target, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+
+
+def driver_threads_alive() -> list:
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(("mopa-loader", "mopa-prefetch"))]
+
+
+def states_equal(a, b) -> int:
+    """Fails unless two train states hold the same bits: every parameter,
+    batch-norm buffer and EMA tensor, every optimizer moment and step, the
+    update counts, the next learning rates and ``step``. Returns the
+    number of tensors compared."""
+    import torch
+
+    if a.step != b.step:
+        fail("resumed step {} != run A's {}".format(b.step, a.step))
+    n = 0
+    for net in ("2d", "3d"):
+        for kind in ("params_", "batch_stats_", "ema_params_"):
+            ta, tb = getattr(a, kind + net), getattr(b, kind + net)
+            if set(ta) != set(tb):
+                fail("resumed {} names differ".format(kind + net))
+            for k in ta:
+                n += 1
+                if not torch.equal(ta[k], tb[k]):
+                    fail("resumed {}{} differs from run A's".format(
+                        kind + net, k))
+        oa, ob = getattr(a, "opt_" + net), getattr(b, "opt_" + net)
+        if oa.count != ob.count or oa.lr_schedule(oa.count) != [
+                g["lr"] for g in ob.optimizer.param_groups][0]:
+            fail("resumed optimizer {}: count {} / lr {} against run A's "
+                 "{} / {}".format(net, ob.count,
+                                  ob.optimizer.param_groups[0]["lr"],
+                                  oa.count, oa.lr_schedule(oa.count)))
+        pa, pb = getattr(a, "params_" + net), getattr(b, "params_" + net)
+        for k in pa:
+            sa = oa.optimizer.state[pa[k]]
+            sb = ob.optimizer.state[pb[k]]
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                n += 1
+                if not torch.equal(sa[key], sb[key]):
+                    fail("resumed Adam {} of {} {} differs from run A's"
+                         .format(key, net, k))
+    return n
+
+
+def check_run_files(run_dir: str, iterations, gone=()) -> None:
+    for which in ("2d", "3d"):
+        for name in ["model_{}_{:06d}.pth".format(which, i)
+                     for i in iterations] + [
+                "last_checkpoint_" + which, "checkpoint_ring_" + which]:
+            if not os.path.exists(os.path.join(run_dir, name)):
+                fail("train() left no {} in its directory".format(name))
+        for i in gone:
+            name = "model_{}_{:06d}.pth".format(which, i)
+            if os.path.exists(os.path.join(run_dir, name)):
+                fail("the checkpoint ring kept {}".format(name))
+
+
+def run_cli(module: str, args: list, out_dir: str) -> dict:
+    """One CLI as a subprocess from the checkout's root; fails on a
+    non-zero exit. Its output goes to ``chiprun_out/cli_<name>.log``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    log = ROOT / "chiprun_out" / "cli_{}.log".format(module.rsplit(".")[-1])
+    log.parent.mkdir(exist_ok=True)
+    log.write_text(res.stdout + "\n--- stderr ---\n" + res.stderr)
+    if res.returncode != 0:
+        fail("{} exited {}: {}".format(module, res.returncode,
+                                       res.stderr[-3000:]))
+    return {"wall_s": wall, "out_dir": out_dir, "stdout": res.stdout}
+
+
+def cli_models_dir(out_dir: str) -> str:
+    """The one models directory a train CLI made under ``OUTPUT_DIR``,
+    with its log file and final checkpoints."""
+    import glob
+
+    dirs = glob.glob(os.path.join(out_dir, "models", "*"))
+    if len(dirs) != 1:
+        fail("a train CLI made {} model directories".format(dirs))
+    run = dirs[0]
+    if not glob.glob(os.path.join(run, "logs", "*_train_*.log")):
+        fail("a train CLI left no log file in {}".format(run))
+    check_run_files(run, (4,))
+    return run
+
+
+def driver_phase(device, report: dict) -> dict:
+    """Phase 10: the training and eval drivers at full width, as a user
+    runs them (:func:`driver_cfg`): run A, the bit-equal resume, run B,
+    ``test_model`` and the four CLIs; ``report`` holds phase 9's."""
+    import argparse
+    import logging
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mopa_tpu_torch.common.checkpoint import CheckpointerV2
+    from mopa_tpu_torch.common.xlsx import read_xlsx_rows
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.test.test import test_model
+    from mopa_tpu_torch.train import trainer
+    from mopa_tpu_torch.train.common import train
+
+    n = len(conv_shapes())
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="mopa-driver-")
+    run_dir = os.path.join(tmp, "run")
+    os.makedirs(os.path.join(run_dir, "logs"))
+    logger = logging.getLogger("chip_smoke.driver")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    handler = logging.FileHandler(os.path.join(run_dir, "logs",
+                                               "driver.log"))
+    logger.addHandler(handler)
+    try:
+        # -- run A: 2 pre-EMA and 2 EMA iterations, validation at 4
+        with DriverProbe() as probe:
+            scc.reset_launch_counts()
+            t0 = time.perf_counter()
+            state_a, eval_a = train(driver_cfg(DRIVER_A), logger, run_dir,
+                                    "smoke", "mopa", device)
+            torch.cuda.synchronize()
+            out["run_a_s"] = time.perf_counter() - t0
+            alive = driver_threads_alive()
+            want = {K1: 2 * n + 2 * 2 * n + DRIVER_VAL_SCANS * n,
+                    K2_DFEATS: 4 * (n - 1), K2_DW: 4 * n, P1: 0, P2: 0}
+            if dict(scc.launches) != want:
+                fail("run A launched {}, expected {}".format(
+                    dict(scc.launches), want))
+            tensor_core_routes("run A")
+            if alive:
+                fail("threads alive after train() returned: {}".format(alive))
+            its_a = list(probe.iterations)
+            val_a, saves_a = list(probe.validations), list(probe.saves)
+        if len(its_a) != DRIVER_A:
+            fail("run A logged {} iterations".format(len(its_a)))
+        for i, m in enumerate(its_a):
+            if "pc_mm_loss" not in m or not all(
+                    np.isfinite(v) for v in m.values()):
+                fail("run A iteration {}: {}".format(i + 1, m))
+        check_run_files(run_dir, (2, 4))
+        rows = read_xlsx_rows(os.path.join(run_dir, "val_class_iou.xlsx"))
+        logged = [[k, round(v.overall_iou, 4)] for k, v in eval_a.items()]
+        if [[r[0], r[-1]] for r in rows[1:]] != logged:
+            fail("val_class_iou.xlsx rows {} against the logged IoUs {}"
+                 .format(rows, logged))
+        print("driver run A: {:.2f} s, launches {}, IoUs {}".format(
+            out["run_a_s"], want, logged), flush=True)
+
+        # -- the resume: model_*_000004 into fresh nets, bit for bit
+        cfg_a = driver_cfg(DRIVER_A)
+        models_r = trainer.build_models(cfg_a, device=device, seed=1)
+        state_r = trainer.create_train_state(cfg_a, models_r)
+        load_ms = {}
+        for which in ("2d", "3d"):
+            ck = CheckpointerV2(trainer.CheckpointAdapter(which, models_r,
+                                                          state_r),
+                                save_dir=run_dir, postfix="_" + which)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.load(os.path.join(run_dir, "model_{}_{:06d}.pth".format(
+                which, DRIVER_A)), resume=False)
+            torch.cuda.synchronize()
+            load_ms[which] = (time.perf_counter() - t0) * 1e3
+        out["resume"] = {"tensors_equal": states_equal(state_a, state_r),
+                         "load_ms": load_ms}
+        print("driver resume: {}".format(out["resume"]), flush=True)
+        del models_r, state_r, state_a
+        torch.cuda.empty_cache()
+
+        # -- run B: resumes at 4 in the EMA phase, to 6
+        with DriverProbe() as probe:
+            scc.reset_launch_counts()
+            t0 = time.perf_counter()
+            state_b, eval_b = train(driver_cfg(DRIVER_B), logger, run_dir,
+                                    "smoke", "mopa", device)
+            torch.cuda.synchronize()
+            out["run_b_s"] = time.perf_counter() - t0
+            want = {K1: 2 * 2 * n + DRIVER_VAL_SCANS * n,
+                    K2_DFEATS: 2 * (n - 1), K2_DW: 2 * n, P1: 0, P2: 0}
+            if dict(scc.launches) != want:
+                fail("run B launched {}, expected {}".format(
+                    dict(scc.launches), want))
+            tensor_core_routes("run B")
+            its_b, loads_b = list(probe.iterations), list(probe.loads)
+            val_b, saves_b = list(probe.validations), list(probe.saves)
+            train_loaders = [ld for ld in probe.loaders if ld[0] == "train"]
+        if train_loaders != [("train", "source", DRIVER_A, False),
+                             ("train", "target", DRIVER_A, True)]:
+            fail("run B built the train loaders {}".format(train_loaders))
+        if state_b.step != DRIVER_B or len(its_b) != DRIVER_B - DRIVER_A:
+            fail("run B ended at step {} after {} iterations".format(
+                state_b.step, len(its_b)))
+        check_run_files(run_dir, (DRIVER_A, DRIVER_B), gone=(2,))
+        ring = open(os.path.join(run_dir, "checkpoint_ring_2d")).read()
+        if [os.path.basename(p) for p in ring.split()] != [
+                "model_2d_000004.pth", "model_2d_000006.pth"]:
+            fail("the ring after run B: {}".format(ring))
+        del state_b
+        torch.cuda.empty_cache()
+        print("driver run B: {:.2f} s, launches {}, train loaders {}".format(
+            out["run_b_s"], want, train_loaders), flush=True)
+
+        # -- test_model on run B's checkpoints, with pseudo-labels
+        ps_dir = os.path.join(tmp, "pselab")
+        args = argparse.Namespace(model_prefix=run_dir, ckpt2d="",
+                                  ckpt3d="", pselab_dir=ps_dir)
+        with DriverProbe() as probe:
+            scc.reset_launch_counts()
+            eval_t = test_model(driver_cfg(DRIVER_B), logger, args, device)
+            val_t = list(probe.validations)
+            out["test_model_launches"] = dict(scc.launches)
+        ious = {k: (v.overall_iou, eval_b[k].overall_iou)
+                for k, v in eval_t.items()}
+        if set(ious) != set(eval_b) or any(
+                abs(a - b) > IOU_TOL for a, b in ious.values()):
+            fail("test_model IoUs {} against run B's last validation"
+                 .format(ious))
+        files = sorted(os.listdir(ps_dir))
+        keys = {"probs_2d", "pseudo_label_2d", "probs_3d", "pseudo_label_3d"}
+        if len(files) != DRIVER_VAL_SCANS or any(
+                set(np.load(os.path.join(ps_dir, f),
+                            allow_pickle=True).item()) != keys
+                for f in files):
+            fail("pseudo-label files {}".format(files))
+        out["test_model_ious"] = ious
+        print("driver test_model: IoUs (test_model, run B) {}; {} "
+              "pseudo-label files".format(ious, len(files)), flush=True)
+
+        # -- the four CLIs, as subprocesses, at mopa_smoke.yaml's own size
+        clis = {}
+        for name, module, extra in (
+                ("mopa", "mopa_tpu_torch.train.train_xmuda_mopa", []),
+                ("xmuda", "mopa_tpu_torch.train.train_xmuda", []),
+                ("baseline", "mopa_tpu_torch.train.train_baseline",
+                 ["TRAIN.XMUDA.lambda_xm_trg", "0",
+                  "TRAIN.XMUDA.lambda_pl", "0"])):
+            cli_out = os.path.join(tmp, "cli_" + name)
+            clis[name] = run_cli(module, ["--cfg", SMOKE_YAML, "OUTPUT_DIR",
+                                          cli_out] + extra, cli_out)
+            clis[name]["models_dir"] = cli_models_dir(cli_out)
+        clis["test"] = run_cli("mopa_tpu_torch.test.test", [
+            "--cfg", SMOKE_YAML, "--model_prefix",
+            clis["mopa"]["models_dir"]], "")
+        if "2D+3D overall IOU" not in clis["test"]["stdout"]:
+            fail("the test CLI printed no IoU")
+        out["cli_wall_s"] = {k: v["wall_s"] for k, v in clis.items()}
+        print("driver CLIs, wall s: {}".format(out["cli_wall_s"]),
+              flush=True)
+    finally:
+        logger.removeHandler(handler)
+        handler.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- the figures
+    def ms(rows):
+        return [r["time"] * 1e3 for r in rows]
+
+    pre, ema_a, ema_b = its_a[:DRIVER_EMA_START], its_a[DRIVER_EMA_START:], \
+        its_b
+    out["iteration_ms"] = {"pre_ema": ms(pre), "ema_run_a": ms(ema_a),
+                           "ema_run_b": ms(ema_b)}
+    # the first iteration after each loader build is the loaders' fill
+    out["iteration_median_ms"] = {
+        "pre_ema": statistics.median(ms(pre[1:])),
+        "ema": statistics.median(ms(ema_a[1:]) + ms(ema_b[1:]))}
+    loader = report["loader"]
+    out["loader_fed_median_ms"] = {
+        "pre_ema": loader["pre_ema"]["iteration_median_ms"],
+        "ema": loader["ema"]["iteration_median_ms"]}
+    vals = val_a + val_b + val_t
+    out["validation"] = [{"s": v["s"], "ms_per_scan": v["s"] * 1e3
+                          / v["scans"]} for v in vals]
+    saves = {}
+    for s_ in saves_a + saves_b:
+        saves.setdefault(s_["stream"], []).append(s_)
+    out["checkpoint_save"] = {
+        k: {"saves": len(v), "median_ms": statistics.median(
+            x["ms"] for x in v), "mib": max(x["mib"] for x in v)}
+        for k, v in saves.items()}
+    out["resume_load_ms"] = {x["stream"]: x["ms"] for x in loads_b}
+    print("driver iteration ms: {}; medians {} beside phase 9's loader-fed "
+          "{}".format(out["iteration_ms"], out["iteration_median_ms"],
+                      out["loader_fed_median_ms"]), flush=True)
+    print("driver validation: {}; checkpoint saves: {}; loads (run B) {}, "
+          "(fresh nets) {}".format(out["validation"], out["checkpoint_save"],
+                                   out["resume_load_ms"],
+                                   out["resume"]["load_ms"]), flush=True)
+    return out
+
+
 def p2_inputs(s: int, v: int, m: int, d: int, seed: int, device,
               shuffled: bool = False):
     """Seeded P2 inputs on the card: a normal (s, v, d) bf16 table, ranks
@@ -1975,7 +2411,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("loader")
 
-    # -- phase 10: summary lines; each conv kernel at the shapes the shipped
+    # -- phase 10: the training and eval drivers, the CLIs
+    report["driver"] = driver_phase(device, report)
+    torch.cuda.empty_cache()
+    lap("driver")
+
+    # -- phase 11: summary lines; each conv kernel at the shapes the shipped
     # step gives it (the fused 8 + 8 + 8-scan plan, bfloat16) with its
     # launches in phase 7, each probe kernel at the probe's
     train_launches = report["mopa"]["launches"]

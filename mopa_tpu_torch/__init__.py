@@ -13,6 +13,11 @@ and backward as hand-written sm_90a CUDA kernels (``ops.sparse_conv_cuda``;
 tensor cores in bfloat16) and the gather probes of ``tools.gather_micro``
 (``ops.gather``); and the data path that feeds the step: the datasets, the
 threaded loaders of ``data.build.build_dataloader`` and the pinned, side-
-stream ``train.common.device_prefetch``.
+stream ``train.common.device_prefetch``; and the drivers a user runs: the
+training loop ``train.common.train`` with its two-stream ``.pth``
+checkpoints (the JAX package's format, so runs resume across the two
+packages), ``data.utils.validate.validate``, ``test.test.test_model`` and
+the command lines ``train.train_{baseline,xmuda,xmuda_mopa}`` and
+``test.test``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -193,3 +193,21 @@ def _merge_a_into_b(a: CfgNode, b: CfgNode, key_path: List[str]) -> None:
                 )
             v = _check_and_coerce(v, b[k], full_key)
             b[k] = v
+
+
+def purge_cfg(cfg: CfgNode) -> None:
+    """Purge sibling CfgNodes whose name does not match the local ``TYPE``
+    key, so that dumped configs stay readable (reference
+    ``mopa/common/config/__init__.py:4-17``). A child that carries its own
+    ``TYPE`` (``OPTIMIZER.MODEL_2D``) stays; an empty ``TYPE`` purges
+    nothing."""
+    target_key = cfg.get("TYPE", None)
+    removed_keys = []
+    for k, v in cfg.items():
+        if isinstance(v, CfgNode):
+            if target_key and (k != target_key) and ("TYPE" not in v):
+                removed_keys.append(k)
+            else:
+                purge_cfg(v)
+    for k in removed_keys:
+        del cfg[k]

@@ -12,8 +12,9 @@ def run_ahead(produce, depth: int, name: str):
     ahead on a daemon thread named ``name``.
 
     ``put(item)`` returns False once the consumer has stopped (it closed
-    this generator), and ``produce`` then returns. An exception raised in
-    ``produce`` is raised in the consumer."""
+    this generator), and ``produce`` then returns; closing the generator
+    waits for that, so the thread has ended when ``close()`` returns. An
+    exception raised in ``produce`` is raised in the consumer."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     done = object()
@@ -34,7 +35,8 @@ def run_ahead(produce, depth: int, name: str):
         except BaseException as e:  # the consumer raises it
             put(e)
 
-    threading.Thread(target=run, daemon=True, name=name).start()
+    thread = threading.Thread(target=run, daemon=True, name=name)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -45,3 +47,7 @@ def run_ahead(produce, depth: int, name: str):
             yield item
     finally:
         stop.set()
+        # the producer ends at its next put(): a closed generator leaves
+        # no thread behind
+        if thread is not threading.current_thread():
+            thread.join()

@@ -101,6 +101,24 @@ class OptimizerSpec(NamedTuple):
     betas: tuple            # Adam
     momentum: float         # SGD
 
+    def optax_slots(self) -> dict:
+        """Where the JAX package's checkpoints keep this optimizer's state:
+        {slot: name or name prefix} in its flattened optax state, a
+        NamedTuple walked as a tuple (so by index). ``optax.adam`` is
+        (``ScaleByAdamState(count, mu, nu)``, the schedule's count), so
+        ``count`` is ``0.0``, ``mu`` ``0.1.<param>``, ``nu``
+        ``0.2.<param>`` and ``schedule_count`` ``1.0``; ``optax.sgd`` is
+        (``TraceState(trace)``, the schedule's count): ``trace``
+        ``0.0.<param>``, ``schedule_count`` ``1.0``. A weight decay puts
+        ``add_decayed_weights`` (no state) first in a chain, so every name
+        gains a ``1.`` prefix."""
+        slots = ({"count": "0.0", "mu": "0.1", "nu": "0.2"}
+                 if self.kind == "Adam" else {"trace": "0.0"})
+        slots["schedule_count"] = "1.0"
+        if self.weight_decay > 0:
+            slots = {k: "1." + v for k, v in slots.items()}
+        return slots
+
     def init(self, params: Sequence[torch.Tensor]) -> ScheduledOptimizer:
         lr0 = self.lr_schedule(0)
         if self.kind == "Adam":

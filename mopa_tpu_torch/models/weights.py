@@ -14,8 +14,10 @@ modules carry the flax names, so the only renaming is ``.kernel`` ->
 
 A missing or extra name, or a shape that does not fit, raises.
 :func:`to_flax` maps port tensors (parameters, their gradients or updates,
-buffers) back to flax names and layouts, so a port state exports as the
-reference's flattened variables and tests compare the two by name.
+optimizer moments, buffers) back to flax names and layouts, and
+:func:`from_flax` maps them forth, so a port state exports as the
+reference's flattened variables (its checkpoints among them) and loads
+from them, and tests compare the two by name.
 """
 
 from __future__ import annotations
@@ -67,13 +69,16 @@ def to_flax(module: nn.Module, tensors: dict) -> dict:
     return out
 
 
-def load_flax_state(module: nn.Module, flat_params: dict,
-                    flat_stats: dict) -> None:
-    """Load one net's flattened flax params and batch stats, strictly."""
-    target = module.state_dict()
+def from_flax(module: nn.Module, flat: dict, target: dict) -> dict:
+    """{flax name: array} -> {port name: float32 tensor in the port's
+    layout} for the names of ``target`` ({port name: tensor} of ``module``'s
+    parameters or buffers, or tensors shaped like them, e.g. optimizer
+    moments). The inverse of :func:`to_flax`. A flax name without a
+    counterpart in ``target``, a name of ``target`` left without a flax
+    variable, or a shape that does not fit raises."""
     owners = dict(module.named_modules())
-    new = {}
-    for name, value in list(flat_params.items()) + list(flat_stats.items()):
+    out = {}
+    for name, value in flat.items():
         arr = np.array(value, np.float32)
         key = name
         if name.endswith(".kernel"):
@@ -83,17 +88,27 @@ def load_flax_state(module: nn.Module, flat_params: dict,
                            .format(name, key, type(module).__name__))
         if name.endswith(".kernel"):
             arr = _convert(owners[key.rsplit(".", 1)[0]], arr)
-        if key in new:
+        if key in out:
             raise KeyError("flax variable {} given twice".format(name))
         if tuple(arr.shape) != tuple(target[key].shape):
             raise ValueError("shape mismatch for {}: flax {} vs port {}"
                              .format(name, arr.shape, tuple(target[key].shape)))
-        new[key] = torch.from_numpy(np.ascontiguousarray(arr))
-    missing = sorted(set(target) - set(new))
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError("no flax variable for {} in {}".format(
             missing, type(module).__name__))
-    module.load_state_dict(new, strict=True)
+    return out
+
+
+def load_flax_state(module: nn.Module, flat_params: dict,
+                    flat_stats: dict) -> None:
+    """Load one net's flattened flax params and batch stats, strictly."""
+    both = set(flat_params) & set(flat_stats)
+    if both:
+        raise KeyError("flax variables {} given twice".format(sorted(both)))
+    module.load_state_dict(from_flax(module, {**flat_params, **flat_stats},
+                                     module.state_dict()), strict=True)
 
 
 def load_flax_params(net2d: nn.Module, net3d: nn.Module, flat_params_2d: dict,

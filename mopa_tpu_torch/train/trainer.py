@@ -26,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -497,3 +498,140 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     step_with_teacher.teacher_step = teacher_step
     step_with_teacher.student_step = train_step
     return step_with_teacher
+
+
+# the torch optimizers' per-parameter state behind each optax slot
+_MOMENTS = {"Adam": (("mu", "exp_avg"), ("nu", "exp_avg_sq")),
+            "SGD": (("trace", "momentum_buffer"),)}
+
+
+def _optimizer_to_flax(spec: OptimizerSpec, opt: ScheduledOptimizer,
+                       module: nn.Module, params: dict) -> dict:
+    """One net's optimizer state in the JAX package's flattened optax names
+    (:meth:`OptimizerSpec.optax_slots`), moments in the flax layout. A
+    parameter the optimizer has not stepped yet (no state), and SGD's trace
+    at momentum 0 (which carries nothing to the next update), are zeros,
+    as optax's are before a first update."""
+    slots = spec.optax_slots()
+    out = {}
+    for slot, key in _MOMENTS[spec.kind]:
+        moment = {}
+        for name, p in params.items():
+            v = opt.optimizer.state.get(p, {}).get(key)
+            moment[name] = torch.zeros_like(p) if v is None else v
+        for name, arr in weights.to_flax(module, moment).items():
+            out[slots[slot] + "." + name] = arr
+    count = np.asarray(opt.count, np.int32)
+    if "count" in slots:
+        out[slots["count"]] = count
+    out[slots["schedule_count"]] = count.copy()
+    return out
+
+
+def _optimizer_from_flax(spec: OptimizerSpec, opt: ScheduledOptimizer,
+                         module: nn.Module, params: dict, flat: dict) -> None:
+    """Fill ``opt`` from the flattened optax state ``flat``: Adam's ``mu``/
+    ``nu``/``count`` become each parameter's ``exp_avg``/``exp_avg_sq``/
+    ``step``, SGD's trace its ``momentum_buffer``, and the schedule's count
+    the update count that indexes the learning rate (set for the next
+    update). A name that is not a slot, a missing name or a misshapen
+    moment raises."""
+    slots = spec.optax_slots()
+    scalars = [s for s in ("count", "schedule_count") if s in slots]
+    moments = {slot: {} for slot, _ in _MOMENTS[spec.kind]}
+    for name, value in flat.items():
+        slot = next((s for s in moments
+                     if name.startswith(slots[s] + ".")), None)
+        if slot is not None:
+            moments[slot][name[len(slots[slot]) + 1:]] = value
+        elif name not in (slots[s] for s in scalars):
+            raise KeyError("optimizer state {} is not a slot of {} ({})"
+                           .format(name, spec.kind, slots))
+    missing = [slots[s] for s in scalars if slots[s] not in flat]
+    if missing:
+        raise KeyError("optimizer state lacks {}".format(missing))
+    loaded = {slot: weights.from_flax(module, m, params)
+              for slot, m in moments.items()}
+    for name, p in params.items():
+        state = {}
+        if spec.kind == "Adam":
+            state = {"step": torch.tensor(float(flat[slots["count"]]),
+                                          dtype=torch.float32),
+                     "exp_avg": loaded["mu"][name].to(p.device),
+                     "exp_avg_sq": loaded["nu"][name].to(p.device)}
+        elif spec.momentum != 0:
+            state = {"momentum_buffer": loaded["trace"][name].to(p.device)}
+        opt.optimizer.state[p] = state
+    opt.count = int(flat[slots["schedule_count"]])
+    for group in opt.optimizer.param_groups:
+        group["lr"] = opt.lr_schedule(opt.count)
+
+
+class CheckpointAdapter:
+    """One net's part of a :class:`TrainState` as the JAX package's
+    two-stream ``.pth`` checkpoints hold it (``mopa_tpu/train/trainer.py::
+    CheckpointAdapter``; reference ``train_xmuda_mopa.py:140-155``), for a
+    ``common.checkpoint.Checkpointer``.
+
+    ``which`` ("2d" or "3d") picks the net. The stream holds ``model``
+    (``params.<flax name>`` and ``batch_stats.<flax name>``), ``optimizer``
+    (the flattened optax state, :func:`_optimizer_to_flax`), ``scheduler``
+    (``{"last_epoch": step}``) and ``ema`` (the flax-named EMA
+    parameters), all float32 numpy in the flax layout, so either package
+    resumes from the other's files. Loading fills ``state`` in place and
+    raises on a missing, extra or misshapen name; ``iteration`` becomes
+    ``state.step``. As in the JAX package, the dropout generator is not
+    saved: after a load ``state.rng`` is the one ``create_train_state``
+    seeded."""
+
+    def __init__(self, which: str, models: Models, state: TrainState):
+        assert which in ("2d", "3d")
+        self.which = which
+        self.module = models.model_2d if which == "2d" else models.model_3d
+        self.spec = models.tx_2d if which == "2d" else models.tx_3d
+        self.state = state
+
+    def _parts(self):
+        s = self.state
+        if self.which == "2d":
+            return s.params_2d, s.batch_stats_2d, s.opt_2d, s.ema_params_2d
+        return s.params_3d, s.batch_stats_3d, s.opt_3d, s.ema_params_3d
+
+    def state_dict(self) -> dict:
+        params, stats, opt, ema = self._parts()
+        model = {"params." + k: v
+                 for k, v in weights.to_flax(self.module, params).items()}
+        model.update({"batch_stats." + k: v for k, v in
+                      weights.to_flax(self.module, stats).items()})
+        return {"model": model,
+                "optimizer": _optimizer_to_flax(self.spec, opt, self.module,
+                                                params),
+                "scheduler": {"last_epoch": int(self.state.step)},
+                "ema": weights.to_flax(self.module, ema)}
+
+    def load_state_dict(self, ckpt: dict, resume_states: bool = True) -> dict:
+        """Load ``ckpt`` (with ``resume_states`` also its EMA parameters and
+        optimizer state); returns its other keys (``iteration``, the best
+        metrics)."""
+        params, _, opt, ema = self._parts()
+        flat = {"params": {}, "batch_stats": {}}
+        for name, value in ckpt.get("model", {}).items():
+            group, _, leaf = name.partition(".")
+            if group not in flat:
+                raise KeyError("model variable {} is neither params. nor "
+                               "batch_stats.".format(name))
+            flat[group][leaf] = value
+        weights.load_flax_state(self.module, flat["params"],
+                                flat["batch_stats"])
+        if resume_states and "ema" in ckpt:
+            with torch.no_grad():
+                for k, v in weights.from_flax(self.module, ckpt["ema"],
+                                              ema).items():
+                    ema[k].copy_(v)
+        if resume_states and "optimizer" in ckpt:
+            _optimizer_from_flax(self.spec, opt, self.module, params,
+                                 ckpt["optimizer"])
+        if "iteration" in ckpt:
+            self.state.step = int(ckpt["iteration"])
+        return {k: v for k, v in ckpt.items()
+                if k not in ("model", "optimizer", "scheduler", "ema")}
