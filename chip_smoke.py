@@ -149,7 +149,23 @@ Phases, in order; any failure exits non-zero:
    first iteration, beside phase 9's loader-fed medians; each
    validation's seconds and ms per scan; checkpoint save ms and MiB per
    stream; load ms; each CLI's wall seconds.
-11. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
+11. Device VGI (the step's route when a VGI target batch ships no host
+   cat plan): (a) ``ops.mixmatch.vgi_insert_batch`` on the card on phase
+   7's raw target batches (8 scans of 16,384 points, one object of up to
+   2,048 points), against the same function on the CPU with the same draws:
+   every output agrees on >= 0.999 of its points (the differing points
+   printed), its milliseconds beside phase 7's host VGI per batch; (b)
+   ``ops.ground.estimate_ground`` on a 120,000-point 64-beam LiDAR-like
+   scan, card against CPU, >= 0.999 agreement, milliseconds; (c) the shipped
+   MoPA step through the device route, pre-EMA and EMA, 3 steps each with
+   launch counts reset just before and read just after (K1 14 / 28 per
+   step, ``d_feats`` 13, ``d_w`` 14), finite losses, inserted points, the
+   ``train/vgi`` stage of a traced step, then the step on phase 7's and 8's
+   host-VGI batches and on the device route in turns; (d) a target batch
+   whose host plans overflow ``native_loader.FIXUP_BUDGET`` (patched to 1
+   in this process) keeps its raw VGI inputs and trains through the device
+   route.
+12. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
    and ``kernel_route`` the conv kernels' route on the main path, whose
    launches are phase 7's), the card line, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -232,6 +248,7 @@ def make_cfg(dtype: str, train: bool = False, batch_size: int = TRAIN_BATCH,
     c.TPU.POINT_BUDGET = POINT_BUDGET
     c.TPU.COMPUTE_DTYPE = dtype
     c.RNG_SEED = 0
+    c.MODEL_2D.UNetResNet34.pretrained = False  # random weights from a seed
     if train:
         for net in (c.OPTIMIZER.MODEL_2D, c.OPTIMIZER.MODEL_3D):
             net.TYPE = "Adam"
@@ -260,6 +277,10 @@ def make_cfg(dtype: str, train: bool = False, batch_size: int = TRAIN_BATCH,
         c.TRAIN.PC_MM.ema_alpha_teacher = 0.999
         c.TRAIN.PC_MM.ema_update_period = 1
         c.TRAIN.PC_MM.use_class_weights = True
+        # the shipped target: SemanticKITTI's 3D augmentation without the z
+        # rotation (device VGI reads it)
+        c.DATASET_TARGET.TYPE = "SemanticKITTISCN"
+        c.DATASET_TARGET.SemanticKITTISCN.augmentation.rot_z = 0.0
     c.freeze()
     return c
 
@@ -587,7 +608,8 @@ def profile_call(fn, stages, top: int = 12) -> dict:
     range holds the runtime call that launched it (matched by the trace's
     correlation id), whichever thread made the call: autograd launches the
     backward from a thread of its own, while the main thread waits inside
-    its range. ``device_kernel_ms`` sums a stage's kernels,
+    its range. ``kernels`` counts a stage's kernels, ``device_kernel_ms``
+    sums them,
     ``device_span_ms`` spans its first to its last kernel on the card, and
     ``top_kernels_ms`` lists its largest kernels by name."""
     import torch
@@ -633,6 +655,7 @@ def profile_call(fn, stages, top: int = 12) -> dict:
     for name in list(stages) + ["(no stage)"]:
         ks = per_stage.get(name, [])
         st = {"host_ms": sum(b - a for a, b in ranges.get(name, [])) / 1e6,
+              "kernels": len(ks),
               "device_kernel_ms": sum(e - s for _, s, e in ks) / 1e6,
               "device_span_ms": (max(e for _, _, e in ks)
                                  - min(s for _, s, _ in ks)) / 1e6
@@ -2283,6 +2306,281 @@ def kernel_entry(kernel: str, rows: list, launches: int, source: str,
             "bound_share": bound_ms / ms, "library_ms": None}
 
 
+VGI_AGREE_MIN = 0.999  # device VGI and the ground fit, card vs CPU
+LIDAR_POINTS = 120000   # one raw SemanticKITTI scan
+
+
+def lidar_scan(seed: int, n: int = LIDAR_POINTS):
+    """(N, 3) float32 points of a 360-degree, 64-beam LiDAR-like scan: beams
+    from -24.9 to +2 degrees; a beam hits the road 1.73 m below the sensor
+    (out to 80 m), a box or wall in front of it (a third of the returns),
+    or, above the horizon, a wall up to 60 m away; a few reflections
+    below the road."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    beams = 64
+    per = n // beams
+    elev = np.deg2rad(np.linspace(-24.9, 2.0, beams))[:, None]
+    az = rng.uniform(-np.pi, np.pi, (beams, per))
+    down = np.tan(-np.clip(elev, None, -1e-3))
+    r = np.where(elev < -0.01, 1.73 / down, rng.uniform(10, 60, (beams, per)))
+    r = np.clip(r, 0, 80.0)
+    hit = rng.random((beams, per)) < 0.33
+    r = np.where(hit, r * rng.uniform(0.2, 0.9, (beams, per)), r)
+    r = r * (1 + rng.normal(0, 0.002, (beams, per)))
+    z = r * np.tan(elev)
+    z = np.where(~hit & (elev < -0.01), -1.73 + rng.normal(0, 0.02, z.shape),
+                 z)
+    refl = rng.random((beams, per)) < 0.005
+    z = np.where(refl, z - rng.uniform(1.5, 3.0, z.shape), z)
+    pts = np.stack([r * np.cos(az), r * np.sin(az), z], -1).reshape(-1, 3)
+    return pts.astype(np.float32)
+
+
+_RUNTIME_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync",
+                  "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaEventSynchronize")
+
+
+def runtime_calls(fn) -> dict:
+    """Counts of the CUDA runtime calls in one traced call of ``fn``:
+    kernel launches, copies, and the synchronizes that make the host wait
+    for the card (the trace's own closing ``cudaDeviceSynchronize`` is not
+    counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(_RUNTIME_CALLS, 0)
+    for ev in prof.profiler.kineto_results.events():
+        if ev.name() in counts:
+            counts[ev.name()] += 1
+    counts["cudaDeviceSynchronize"] -= 1
+    return counts
+
+
+def agreement(a, b) -> tuple:
+    """(share of equal rows, number of differing rows) of two tensors
+    compared along their first dimension (all other dims must match)."""
+    eq = (a.cpu() == b.cpu()).reshape(a.shape[0], -1).all(1)
+    return float(eq.float().mean()), int((~eq).sum())
+
+
+def vgi_device_batches(n: int, start: int, with_ema: bool, cfg) -> list:
+    """``n`` (source, target) pairs like :func:`mopa_batches`' before the
+    loader's host VGI: the targets keep their raw VGI inputs and the scans
+    carry their host-built plans."""
+    from mopa_tpu_torch.data import synthetic
+
+    host = dict(synthetic.host_plan_settings(cfg, POINT_BUDGET, seed=start),
+                vgi=None)
+    pairs = train_batches(n, TRAIN_BATCH, start, with_ema, with_vgi=True)
+    for src, trg in pairs:
+        synthetic.add_host_plans(src, host)
+        synthetic.add_host_plans(trg, host)
+        if "hp_cat_rankn" in trg or "ori_points" not in trg:
+            fail("device-VGI batch carries a host cat plan or no raw inputs")
+    return pairs
+
+
+def vgi_insert_check(cfg, pairs, host_report, device) -> dict:
+    """(a): device VGI on the card vs the CPU on the same draws, and its
+    time per batch beside host VGI's."""
+    import torch
+
+    from mopa_tpu_torch.ops import mixmatch
+    from mopa_tpu_torch.train import trainer
+    from mopa_tpu_torch.train.common import decode_batch
+
+    out = {"agreement": [], "differing_points": []}
+    gen = torch.Generator(device=device).manual_seed(5)
+    for i, (_, trg) in enumerate(pairs):
+        dev = decode_batch(trg, device)
+        obj_valid = dev["obj_valid"]
+        draws = mixmatch.vgi_draws(obj_valid.shape[0], obj_valid.shape[1],
+                                   mixmatch.search_grid(cfg.TRAIN.PC_MM), gen,
+                                   device)
+        got = mixmatch.vgi_insert_batch(cfg, dev, True, draws)
+        want = mixmatch.vgi_insert_batch(
+            cfg, decode_batch(trg, "cpu"), True,
+            {k: v.cpu() for k, v in draws.items()})
+        shares, differ = {}, {}
+        for k in ("coords", "valid", "label", "obj_mask", "inserted"):
+            shares[k], differ[k] = agreement(got[k], want[k])
+        out["agreement"].append(shares)
+        out["differing_points"].append(differ)
+        print("device VGI batch {}: agreement with the CPU {}, differing "
+              "points {}, inserted {} of {} objects".format(
+                  i, shares, differ, int(got["inserted"].sum()),
+                  got["inserted"].numel()), flush=True)
+        if min(shares.values()) < VGI_AGREE_MIN:
+            fail("device VGI on the card disagrees with the CPU: {}".format(
+                shares))
+        if not bool(got["inserted"].any()):
+            fail("device VGI inserted no object in batch {}".format(i))
+    dev = decode_batch(pairs[0][1], device)
+    times = [timed_call(mixmatch.vgi_insert, cfg, dev, True, gen)[1]
+             for _ in range(WARM_REQUESTS + 1)][1:]
+    out["insert_ms"] = times
+    out["insert_median_ms"] = statistics.median(times)
+    out["runtime_calls"] = {
+        "insert": runtime_calls(
+            lambda: mixmatch.vgi_insert(cfg, dev, True, gen)),
+        "insert_and_cat_plan": runtime_calls(
+            lambda: trainer.device_vgi(cfg, dev, True, gen))}
+    print("runtime calls of one device VGI insert, and of the insert with "
+          "the cat plan build (train/vgi): {}".format(out["runtime_calls"]),
+          flush=True)
+    out["host_vgi_ms"] = [r["vgi_ms"] for r in host_report["per_pair_ms"]]
+    print("device VGI insert, {} scans of {} + {} points (ms): {}; median "
+          "{:.2f}; host VGI per batch in phase 7 (ms): {}".format(
+              TRAIN_BATCH, POINT_BUDGET, dev["obj_valid"].shape[-1], times,
+              out["insert_median_ms"], out["host_vgi_ms"]), flush=True)
+    return out
+
+
+def ground_check(device) -> dict:
+    """(b): the ground fit on one 120,000-point scan, card vs CPU."""
+    import torch
+
+    from mopa_tpu_torch.ops import ground
+
+    pts = torch.from_numpy(lidar_scan(11))
+    valid = torch.ones(pts.shape[0], dtype=torch.bool)
+    want = ground.estimate_ground(pts, valid)
+    pts_d, valid_d = pts.to(device), valid.to(device)
+    got = ground.estimate_ground(pts_d, valid_d)
+    share, differ = agreement(got, want)
+    times = [timed_call(ground.estimate_ground, pts_d, valid_d)[1]
+             for _ in range(WARM_REQUESTS)]
+    out = {"points": int(pts.shape[0]), "ground_share": float(want.float()
+                                                              .mean()),
+           "agreement": share, "differing_points": differ, "ms": times,
+           "median_ms": statistics.median(times),
+           "runtime_calls": runtime_calls(
+               lambda: ground.estimate_ground(pts_d, valid_d))}
+    print("ground fit, {} points: ground share {:.3f}, agreement with the "
+          "CPU {:.6f} ({} points differ); ms {}; runtime calls {}".format(
+              out["points"], out["ground_share"], share, differ, times,
+              out["runtime_calls"]), flush=True)
+    if share < VGI_AGREE_MIN or not 0.05 < out["ground_share"] < 0.95:
+        fail("ground fit on the card: {}".format(out))
+    return out
+
+
+def device_vgi_steps(cfg, dev_pairs, host_pairs, device,
+                     with_ema: bool) -> dict:
+    """(c): the shipped MoPA step through the device route (counted launches,
+    finite losses, inserted points, the traced ``train/vgi`` stage), then
+    host-VGI and device-VGI steps in turns."""
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.train import trainer
+
+    tag = "device-VGI " + ("EMA" if with_ema else "pre-EMA")
+    models = trainer.build_models(cfg, device=device, seed=0)
+    state = trainer.create_train_state(cfg, models)
+    step = trainer.make_train_step(cfg, models, with_pl=True,
+                                   with_ema=with_ema)
+    scc.reset_launch_counts()
+    steps = []
+    for i, (src, trg) in enumerate(dev_pairs):
+        (state, metrics), ms, peak = timed_call(step, state, src, trg)
+        losses = _losses(metrics)
+        if not all(torch.isfinite(torch.tensor(list(losses.values())))) \
+                or not losses.get("vgi_inserted", 0) > 0:
+            fail("{} step {}: {}".format(tag, i, losses))
+        steps.append({"ms": ms, "peak_mib": peak, "losses": losses})
+        print("{} step {}: {:.2f} ms, peak {:.0f} MiB, {}".format(
+            tag, i, ms, peak, losses), flush=True)
+    launches = dict(scc.launches)
+    n, k = len(conv_shapes()), len(dev_pairs)
+    want = {K1: (2 if with_ema else 1) * n * k, K2_DFEATS: (n - 1) * k,
+            K2_DW: n * k, P1: 0, P2: 0}
+    if launches != want:
+        fail("{} path launched {}, expected {}".format(tag, launches, want))
+    routes = tensor_core_routes(tag + " path")
+    stages = (trainer.TEACHER_STAGES if with_ema else ()) \
+        + trainer.TRAIN_STAGES
+    src, trg = dev_pairs[0]
+    prof = profile_call(lambda: step(state, src, trg), stages, top=16)
+    vgi_stage = prof.get("stages", {}).get("train/vgi", {})
+    print("{} traced step: wall {} ms, busy {} ms, idle {}; train/vgi "
+          "stage {}".format(tag, prof.get("wall_ms"),
+                            prof.get("device_busy_ms"),
+                            prof.get("device_idle_share"), vgi_stage),
+          flush=True)
+    if not vgi_stage.get("device_kernel_ms", 0) > 0:
+        fail("{}: the traced step ran no kernel in train/vgi".format(tag))
+    turns = {"host_vgi_ms": [], "device_vgi_ms": []}
+    hsrc, htrg = host_pairs[0]
+    for order in ("host", "device", "device", "host") * 2:
+        pair = (hsrc, htrg) if order == "host" else (src, trg)
+        turns[order + "_vgi_ms"].append(timed_call(step, state, *pair)[1])
+    turns["host_vgi_median_ms"] = statistics.median(turns["host_vgi_ms"])
+    turns["device_vgi_median_ms"] = statistics.median(turns["device_vgi_ms"])
+    print("{} step in turns with host VGI (ms): {}".format(tag, turns),
+          flush=True)
+    del models, state, step
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": launches, "routes": routes,
+            "profile": prof, "turns": turns}
+
+
+def overflow_check(cfg, device) -> dict:
+    """(d): host plans that overflow a patched fixup budget leave the raw
+    VGI inputs; the step trains through the device route."""
+    import torch
+
+    from mopa_tpu_torch.data import native_loader, synthetic
+    from mopa_tpu_torch.train import trainer
+
+    host = synthetic.host_plan_settings(cfg, POINT_BUDGET, seed=700)
+    src, trg = train_batches(1, TRAIN_BATCH, 700, with_vgi=True)[0]
+    with mock.patch.object(native_loader, "FIXUP_BUDGET", 1):
+        synthetic.add_host_plans(src, host)
+        synthetic.add_host_plans(trg, host)
+    if "hp_cat_rankn" in trg or "ori_points" not in trg:
+        fail("the patched fixup budget did not overflow the cat plan")
+    models = trainer.build_models(cfg, device=device, seed=0)
+    state = trainer.create_train_state(cfg, models)
+    step = trainer.make_train_step(cfg, models, with_pl=True)
+    state, metrics = step(state, src, trg)
+    losses = _losses(metrics)
+    print("overflowing host plans (fixup budget 1): the step trained "
+          "through device VGI: {}".format(losses), flush=True)
+    if not all(torch.isfinite(torch.tensor(list(losses.values())))) \
+            or not losses.get("vgi_inserted", 0) > 0:
+        fail("overflow batch: {}".format(losses))
+    del models, state, step
+    torch.cuda.empty_cache()
+    return {"losses": losses}
+
+
+def device_vgi_phase(device, report: dict, host_pairs: dict) -> dict:
+    """Phase 11: device VGI, (a)-(d) of the module docstring.
+    ``host_pairs`` holds phases 7 and 8's host-VGI batches."""
+    cfg = make_cfg("bfloat16", train=True, vgi=True)
+    pre = vgi_device_batches(COUNTED_STEPS, 500, False, cfg)
+    out = {"insert": vgi_insert_check(cfg, pre, report["mopa"]["host"],
+                                      device),
+           "ground": ground_check(device)}
+    out["step"] = device_vgi_steps(cfg, pre, host_pairs["mopa"], device,
+                                   False)
+    ema = vgi_device_batches(COUNTED_STEPS, 600, True, cfg)
+    out["step_ema"] = device_vgi_steps(
+        make_cfg("bfloat16", train=True, ema_xm_prob=0.7, vgi=True), ema,
+        host_pairs["mopa_ema"], device, True)
+    out["overflow"] = overflow_check(cfg, device)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2416,7 +2714,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("driver")
 
-    # -- phase 11: summary lines; each conv kernel at the shapes the shipped
+    # -- phase 11: device VGI (the step's route without a host cat plan)
+    report["device_vgi"] = device_vgi_phase(
+        device, report, {"mopa": batches_m, "mopa_ema": batches_me})
+    torch.cuda.empty_cache()
+    lap("device_vgi")
+
+    # -- phase 12: summary lines; each conv kernel at the shapes the shipped
     # step gives it (the fused 8 + 8 + 8-scan plan, bfloat16) with its
     # launches in phase 7, each probe kernel at the probe's
     train_launches = report["mopa"]["launches"]

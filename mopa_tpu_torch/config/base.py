@@ -130,6 +130,11 @@ _C.TPU.COMPUTE_DTYPE = "bfloat16"
 _C.TPU.DATA_PARALLEL = 0
 # Per-image static SAM mask-id budget for the mask-pooled consistency loss.
 _C.TPU.SAM_MASK_BUDGET = 64
+# Path to the ImageNet resnet34 weights of the pretrained 2D encoder
+# (MODEL_2D.<TYPE>.pretrained): a torchvision state_dict (.pth) or the JAX
+# package's tools/convert_resnet34.py .npz. Empty: also checks the
+# MOPA_RESNET34_WEIGHTS environment variable, then trains from scratch.
+_C.TPU.RESNET34_WEIGHTS = ""
 
 # ---------------------------------------------------------------------------- #
 # Misc

@@ -18,6 +18,9 @@ optimizer moments, buffers) back to flax names and layouts, and
 :func:`from_flax` maps them forth, so a port state exports as the
 reference's flattened variables (its checkpoints among them) and loads
 from them, and tests compare the two by name.
+
+:func:`load_resnet34_file` loads the ImageNet ResNet34 encoder of the 2D net
+from a torchvision ``.pth`` or from the JAX package's converted ``.npz``.
 """
 
 from __future__ import annotations
@@ -118,3 +121,82 @@ def load_flax_params(net2d: nn.Module, net3d: nn.Module, flat_params_2d: dict,
     variables, e.g. ``torch_compat.flatten_pytree(params_2d)``."""
     load_flax_state(net2d, flat_params_2d, flat_stats_2d)
     load_flax_state(net3d, flat_params_3d, flat_stats_3d)
+
+
+# ResNet34's residual blocks per stage (torchvision's ``layer1`` ..
+# ``layer4``).
+RESNET34_BLOCKS = {"layer1": 3, "layer2": 4, "layer3": 6, "layer4": 3}
+
+
+def load_resnet34_encoder(state_dict: dict, prefix: str = "net_2d") -> dict:
+    """A torchvision ``resnet34`` state dict -> {port name: float32 tensor}
+    of the UNetResNet34 encoder under ``prefix`` (the JAX package's
+    ``torch_compat.load_resnet34_encoder`` name map). Bare torchvision names
+    and the same under ``module.`` / ``net_2d.`` are accepted; ``fc.*``
+    and ``num_batches_tracked`` are not read. Convolutions keep their
+    torchvision layout, which is the port's; batch norm's ``weight`` /
+    ``bias`` / ``running_mean`` / ``running_var`` become ``scale`` /
+    ``bias`` / ``mean`` / ``var``. A missing name raises ``KeyError``."""
+    sd = {}
+    for k, v in state_dict.items():
+        k = k.replace("module.", "")
+        if k.startswith("net_2d."):
+            k = k[len("net_2d."):]
+        sd[k] = v
+    out = {}
+
+    def conv(src, dst):
+        out[dst + ".weight"] = sd[src + ".weight"]
+
+    def bn(src, dst):
+        for s, d in (("weight", "scale"), ("bias", "bias"),
+                     ("running_mean", "mean"), ("running_var", "var")):
+            out[dst + "." + d] = sd[src + "." + s]
+
+    conv("conv1", prefix + ".conv1")
+    bn("bn1", prefix + ".bn1")
+    for layer, n_blocks in RESNET34_BLOCKS.items():
+        for b in range(n_blocks):
+            src = "{}.{}".format(layer, b)
+            dst = "{}.{}.block{}".format(prefix, layer, b)
+            conv(src + ".conv1", dst + ".conv1")
+            bn(src + ".bn1", dst + ".bn1")
+            conv(src + ".conv2", dst + ".conv2")
+            bn(src + ".bn2", dst + ".bn2")
+            if src + ".downsample.0.weight" in sd:
+                conv(src + ".downsample.0", dst + ".downsample_conv")
+                bn(src + ".downsample.1", dst + ".downsample_bn")
+    return {k: torch.as_tensor(v, dtype=torch.float32)
+            for k, v in out.items()}
+
+
+def load_resnet34_file(net2d: nn.Module, path: str) -> None:
+    """Load the ImageNet ResNet34 encoder into ``net2d`` (a ``Net2DSeg``) in
+    place; its decoder and heads keep their weights. ``path`` is a
+    torchvision ``.pth`` state dict (read with ``torch.load`` on the CPU),
+    or a ``.npz`` of flax names (``params.<name>`` / ``batch_stats.<name>``,
+    the JAX package's ``tools/convert_resnet34.py``) read through
+    :func:`from_flax`. A name the net does not have, or a shape that does
+    not fit, raises."""
+    state = net2d.state_dict()
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            flat = {k.split(".", 1)[1]: z[k] for k in z.files
+                    if k.startswith(("params.", "batch_stats."))}
+        keys = [n[:-len(".kernel")] + ".weight" if n.endswith(".kernel")
+                else n for n in flat]
+        loaded = from_flax(net2d, flat, {k: state[k] for k in keys})
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
+        loaded = load_resnet34_encoder(sd)
+    with torch.no_grad():
+        for k, v in loaded.items():
+            if k not in state:
+                raise KeyError("the 2D net has no {}".format(k))
+            if tuple(v.shape) != tuple(state[k].shape):
+                raise ValueError("shape mismatch for {}: file {} vs net {}"
+                                 .format(k, tuple(v.shape),
+                                         tuple(state[k].shape)))
+            state[k].copy_(v)

@@ -13,10 +13,10 @@ PyTorch on the device; a scan at a time.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
+
+from mopa_tpu_torch.ops.projection import project_pixels
 
 
 def gaussian_kernel_2d(size: int, sigma: float) -> np.ndarray:
@@ -25,22 +25,6 @@ def gaussian_kernel_2d(size: int, sigma: float) -> np.ndarray:
     g = np.exp(-0.5 * (ax / sigma) ** 2)
     k = np.outer(g, g)
     return k / k.sum()
-
-
-def project_pixels(points: torch.Tensor, fov_up: float, fov_down: float,
-                   proj_w: int, proj_h: int):
-    """Per-point (pixel id, range) of a spherical projection of (N, 3)
-    points (``mopa_tpu/ops/projection.py::project_pixels``)."""
-    depth = torch.linalg.norm(points, dim=-1)
-    yaw = -torch.atan2(points[:, 1], points[:, 0])
-    pitch = torch.asin(torch.clamp(points[:, 2] / depth.clamp(min=1e-12),
-                                   -1, 1))
-    fov = abs(fov_down) + abs(fov_up)
-    px = 0.5 * (yaw / math.pi + 1.0) * proj_w
-    py = (1.0 - (pitch + abs(fov_down)) / fov) * proj_h
-    px = torch.clamp(torch.floor(px), 0, proj_w - 1).long()
-    py = torch.clamp(torch.floor(py), 0, proj_h - 1).long()
-    return py * proj_w + px, depth
 
 
 def build_range_image(points, fov_up, fov_down, proj_w, proj_h, values,

@@ -37,8 +37,9 @@ from mopa_tpu_torch.models.metric import SegIoU
 
 _INT_KEYS = ("coords", "img_indices", "seg_label", "pseudo_label_2d",
              "pseudo_label_3d", "sam_mask", "ema_map", "ori_coords",
-             "ori_img_indices", "hp_counts", "hp_inverse", "hp_ori_counts",
-             "hp_ori_inverse", "cat_label", "hp_cat_counts", "hp_cat_inverse")
+             "ori_img_indices", "ori_pseudo_label_3d", "hp_counts",
+             "hp_inverse", "hp_ori_counts", "hp_ori_inverse", "proj_xy",
+             "cat_label", "hp_cat_counts", "hp_cat_inverse")
 
 # Keys only the EMA teacher reads (its unaugmented inputs and their host-built
 # plans); the student step never sees them.
@@ -65,8 +66,9 @@ def _wire_arrays(batch: dict, strip_ema: bool = False,
     derivable ``batch_idx``/``ori_batch_idx``, none of ``strip_keys``, none
     of the EMA teacher's keys with ``strip_ema``; no voxel coordinates of a
     group whose host-built plan is shipped; no validity mask that its
-    count rebuilds; and an all-ones feature column of at most 8 channels
-    as the (B, C) float16 ``feats_ones`` / ``ori_feats_ones`` marker."""
+    count rebuilds (``ori_points_valid`` from ``vgi_num_points`` too); and
+    an all-ones feature column of at most 8 channels as the (B, C) float16
+    ``feats_ones`` / ``ori_feats_ones`` marker."""
     def keep(k):
         if k.startswith("_") or k in _DERIVED_KEYS or k in strip_keys:
             return False
@@ -81,6 +83,9 @@ def _wire_arrays(batch: dict, strip_ema: bool = False,
             return False
         if k == "ori_point_valid" and "ori_num_points" in batch \
                 and "ori_img_indices" in batch:
+            return False
+        if k == "ori_points_valid" and "vgi_num_points" in batch \
+                and "ori_points" in batch:
             return False
         return True
 
@@ -170,8 +175,10 @@ def decode_batch(batch: dict, device) -> dict:
     rebuilt from ``num_points``/``ori_num_points`` when absent; an all-ones
     SCN feature column shipped as the (B, C) ``feats_ones``/
     ``ori_feats_ones`` marker is expanded; ``batch_idx``/``ori_batch_idx`` are derived from the (B, P)
-    layout when absent. Keys starting with "_" stay on the host side and are
-    dropped.
+    layout when absent. The raw VGI scan ``ori_points`` is widened from its
+    int16 fixed point, and ``ori_points_valid`` rebuilt from
+    ``vgi_num_points`` when absent. Keys starting with "_" stay on the host
+    side and are dropped.
     """
     out = {}
     for k, v in batch.items():
@@ -186,6 +193,17 @@ def decode_batch(batch: dict, device) -> dict:
     for k in _INT_KEYS:
         if k in out:
             out[k] = out[k].long()
+    if "ori_points" in out and out["ori_points"].dtype == torch.int16:
+        # the raw VGI scan's int16 fixed point: 5 mm in xyz, 1/32000 in
+        # intensity
+        q = out["ori_points"].float()
+        out["ori_points"] = torch.cat([q[..., :3] * 0.005,
+                                       q[..., 3:] * (1.0 / 32000.0)], dim=-1)
+    if "ori_points_valid" not in out and "vgi_num_points" in out \
+            and "ori_points" in out:
+        p = out["ori_points"].shape[1]
+        out["ori_points_valid"] = (torch.arange(p, device=device)[None, :]
+                                   < out["vgi_num_points"][:, None])
     for pre in ("", "ori_"):
         feats, valid = pre + "feats", pre + "point_valid"
         if feats in out:

@@ -11,18 +11,26 @@ net by its own optimizer, then the EMA update. From ``ema_start_iter`` on
 unaugmented view, and its labels replace the offline pseudo labels.
 
 With ``TRAIN.PC_MM.lambda_pc_mm`` > 0 (the shipped MoPA config) the step
-also trains the 3D net on the VGI cat domain, the target scans with an
-object inserted on the host (``data.vgi_host``): a third batch-norm domain
-of the fused 3D forward, with its own CE loss. Voxel plans come from the
-batch's host-built ``hp_*`` / ``hp_ori_*`` / ``hp_cat_*`` keys where it
-has them, else from the device build. VGI
-without host-built cat arrays (the reference's device VGI), the other 3D
-backbones, the depth head and multi-card data parallelism are not ported
-and raise ``NotImplementedError`` naming their ROADMAP item.
+also trains the 3D net on the VGI cat domain, the target scans with objects
+inserted: a third batch-norm domain of the fused 3D forward, with its own
+CE loss. The cat domain comes from host VGI (``data.vgi_host``) where the
+target batch carries its ``hp_cat_*`` plan, else from device VGI
+(``ops.mixmatch``, stage ``train/vgi``) over the batch's raw VGI inputs,
+with its plan built on the card. Voxel plans come from the batch's
+host-built ``hp_*`` / ``hp_ori_*`` / ``hp_cat_*`` keys where it has them,
+else from the device build. The other 3D backbones, the depth head and
+multi-card data parallelism are not ported and raise
+``NotImplementedError`` naming their ROADMAP item.
+
+With ``MODEL_2D.<TYPE>.pretrained`` (the default) :func:`create_train_state`
+loads the ImageNet ResNet34 encoder from the file
+:func:`resolve_resnet34_weights` names, as the JAX package does.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -44,11 +52,13 @@ from mopa_tpu_torch.models.scn_unet import (HOST_PLAN_KEYS, UNetPlan,
                                             build_unet_plan_batched,
                                             capacity_schedule, concat_plans,
                                             plan_from_host_arrays)
+from mopa_tpu_torch.ops import mixmatch
 from mopa_tpu_torch.train.common import decode_batch, is_ema_key
 
 # Names of the profiler ranges that mark the train step's stages, in order.
-TRAIN_STAGES = ("train/decode", "train/plan", "train/net2d", "train/net3d",
-                "train/losses", "train/backward", "train/optim", "train/ema")
+TRAIN_STAGES = ("train/decode", "train/vgi", "train/plan", "train/net2d",
+                "train/net3d", "train/losses", "train/backward", "train/optim",
+                "train/ema")
 # The EMA teacher's stages, which run before the train step's in the EMA
 # phase.
 TEACHER_STAGES = ("teacher/decode", "teacher/plan", "teacher/net2d",
@@ -97,15 +107,32 @@ def build_plan_from_batch(cfg, coords: torch.Tensor, valid_flat: torch.Tensor,
                                    sample_domains=sample_domains)
 
 
+def device_vgi(cfg, batch_trg: dict, scan_labels: bool,
+               generator: torch.Generator) -> tuple:
+    """VGI on the card over a decoded target batch's raw VGI inputs
+    (:func:`ops.mixmatch.vgi_insert`, its draws from ``generator``; the
+    scans' pseudo labels with ``scan_labels``): (cat, plan of the B cat
+    scans of P + K*O points in BN domain 2, built on the card)."""
+    with torch.no_grad():
+        cat = mixmatch.vgi_insert(cfg, batch_trg, scan_labels, generator)
+        b = cat["inserted"].shape[0]
+        plan = build_plan_from_batch(cfg, cat["coords"], cat["valid"],
+                                     cat["valid"].shape[0] // b,
+                                     sample_domains=[2] * b)
+    return cat, plan
+
+
 def build_train_plan(cfg, batch_src: dict, batch_trg: dict,
-                     with_vgi: bool) -> tuple:
+                     with_vgi: bool, device_cat: tuple | None = None
+                     ) -> tuple:
     """(plan, cat) of the student step over decoded batches: one fused plan
     of the 2B [source; target] scans (BN domains 0 and 1), decoded from their
     ``hp_*`` keys where both batches have them, else built from their
-    coordinates; with ``with_vgi`` the B cat scans of host VGI
-    (``hp_cat_*``, domain 2) concatenated after them, and ``cat`` holds
-    their flat ``valid``, ``label``, ``obj_mask`` and all-ones ``feats``
-    (else None)."""
+    coordinates; with ``with_vgi`` the B cat scans (domain 2) concatenated
+    after them: ``device_cat`` (:func:`device_vgi`'s (cat, plan)) where
+    given, else host VGI's (``hp_cat_*``). ``cat`` holds their flat
+    ``valid``, ``label``, ``obj_mask`` and all-ones ``feats`` (else
+    None)."""
     b, p = batch_src["img_indices"].shape[:2]
     num_levels = _num_levels(cfg)
     doms = [0] * b + [1] * b
@@ -125,6 +152,9 @@ def build_train_plan(cfg, batch_src: dict, batch_trg: dict,
                 sample_domains=doms)
         if not with_vgi:
             return plan, None
+        if device_cat is not None:
+            cat, cat_plan = device_cat
+            return concat_plans([plan, cat_plan]), cat
         valid = batch_trg["cat_valid"].reshape(-1)
         cat = {"valid": valid, "label": batch_trg["cat_label"].reshape(-1),
                "obj_mask": batch_trg["cat_obj_mask"].reshape(-1),
@@ -140,6 +170,18 @@ class Models(NamedTuple):
     model_3d: nn.Module
     tx_2d: OptimizerSpec | None = None
     tx_3d: OptimizerSpec | None = None
+
+
+def resolve_resnet34_weights(cfg) -> str:
+    """The pretrained ResNet34 weights file a run would load, or "": the
+    path in ``TPU.RESNET34_WEIGHTS``, else in ``$MOPA_RESNET34_WEIGHTS``,
+    when a file is there. A torchvision ``.pth`` state dict, or the ``.npz``
+    of the JAX package's ``tools/convert_resnet34.py`` (flax names)."""
+    path = ""
+    if "TPU" in cfg and cfg.TPU.get("RESNET34_WEIGHTS", ""):
+        path = cfg.TPU.RESNET34_WEIGHTS
+    path = path or os.environ.get("MOPA_RESNET34_WEIGHTS", "")
+    return path if path and os.path.isfile(path) else ""
 
 
 def build_models(cfg, device="cuda", seed: int | None = None) -> Models:
@@ -183,11 +225,23 @@ def create_train_state(cfg, models: Models, seed: int | None = None,
     """The train state over ``models``: their seeded weights, or, with
     ``flax_variables`` = (params_2d, batch_stats_2d, params_3d,
     batch_stats_3d) as flattened flax dicts, the reference's weights through
-    the bridge. Optimizers start empty, the EMA params equal the params,
-    ``step`` is 0 and ``rng`` is seeded from ``seed`` (``RNG_SEED``)."""
+    the bridge. With ``MODEL_2D.<TYPE>.pretrained`` the 2D encoder is then
+    loaded from :func:`resolve_resnet34_weights`'s file (the decoder keeps
+    its weights), or a warning says that it trains from scratch.
+    Optimizers start empty, the EMA params equal the params, ``step`` is 0
+    and ``rng`` is seeded from ``seed`` (``RNG_SEED``)."""
     if flax_variables is not None:
         weights.load_flax_params(models.model_2d, models.model_3d,
                                  *flax_variables)
+    if cfg.MODEL_2D.get(cfg.MODEL_2D.TYPE, {}).get("pretrained", True):
+        path = resolve_resnet34_weights(cfg)
+        if path:
+            weights.load_resnet34_file(models.model_2d, path)
+        else:
+            logging.getLogger("mopa_tpu_torch").warning(
+                "MODEL_2D pretrained=True but no resnet34 weights file found "
+                "(set TPU.RESNET34_WEIGHTS or MOPA_RESNET34_WEIGHTS); "
+                "the 2D encoder trains from scratch.")
     if models.tx_2d is None or models.tx_3d is None:
         raise ValueError("OPTIMIZER.MODEL_2D/3D.TYPE must name an optimizer")
     device = next(models.model_2d.parameters()).device
@@ -286,8 +340,10 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     the student step; ``with_mopa``: the MoPA-only SAM consistency
     (``sam_mask``) and VGI terms. The cross-modal, MinEnt, SAM and VGI terms
     are on where their lambdas are > 0; VGI reads the target's host VGI keys
-    (``cat_valid``, ``cat_label``, ``cat_obj_mask``, ``hp_cat_*``). The
-    step updates ``state`` in place and returns it with ``step`` + 1;
+    (``cat_valid``, ``cat_label``, ``cat_obj_mask``, ``hp_cat_*``) where it
+    has ``hp_cat_rankn``, else runs :func:`device_vgi` over its raw VGI
+    inputs with draws from ``state.rng``. The step updates ``state`` in
+    place and returns it with ``step`` + 1;
     ``metrics`` maps names to device tensors (losses, ``total_loss``, the
     int64 confusion matrices ``cm_src_2d``/``cm_src_3d``, and with VGI
     ``pc_mm_acc`` and ``vgi_inserted``). Each stage is one ``record_function``
@@ -414,20 +470,21 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         return total, metrics
 
     def train_step(state: TrainState, batch_src: dict, batch_trg: dict):
-        (decode, plan_r, net2d, net3d, loss_r, backward, optim,
+        (decode, vgi_r, plan_r, net2d, net3d, loss_r, backward, optim,
          ema) = TRAIN_STAGES
-        if with_vgi and "hp_cat_rankn" not in batch_trg:
-            raise _not_ported("M14", "device VGI (TRAIN.PC_MM.lambda_pc_mm "
-                              "> 0 on a target batch without host VGI's "
-                              "hp_cat_* keys)")
         model_2d.train()
         model_3d.train()
         with record_function(decode):
             batch_src = decode_batch(batch_src, device)
             batch_trg = decode_batch(batch_trg, device)
             b, p = batch_src["img_indices"].shape[:2]
+        device_cat = None
+        if with_vgi and "hp_cat_rankn" not in batch_trg:
+            with record_function(vgi_r):
+                device_cat = device_vgi(cfg, batch_trg, with_pl, state.rng)
         with record_function(plan_r):
-            plan, cat = build_train_plan(cfg, batch_src, batch_trg, with_vgi)
+            plan, cat = build_train_plan(cfg, batch_src, batch_trg, with_vgi,
+                                         device_cat)
         state.opt_2d.zero_grad()
         state.opt_3d.zero_grad()
         with record_function(net2d):

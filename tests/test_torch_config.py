@@ -12,8 +12,7 @@ YAMLS = sorted(glob.glob(os.path.join(CONFIG_DIR, "**", "*.yaml"),
                          recursive=True))
 # TPU knobs of the JAX package that nothing in the port reads and no shipped
 # YAML sets.
-JAX_ONLY = {"TPU.PALLAS_CONV", "TPU.VOXEL_BUDGET", "TPU.VGI_CENTER_BUDGET",
-            "TPU.RESNET34_WEIGHTS"}
+JAX_ONLY = {"TPU.PALLAS_CONV", "TPU.VOXEL_BUDGET", "TPU.VGI_CENTER_BUDGET"}
 
 
 def _flat(node, prefix=""):

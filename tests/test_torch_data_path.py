@@ -411,8 +411,8 @@ def test_device_batch_matches_jax(strip_ema, strip_keys):
                                             want_ema=True)))
     # a batch whose samples fill the budget ships its all-ones feats as
     # the feats_ones marker; it keeps the raw VGI inputs (no host VGI),
-    # whose ori_points_valid JAX drops for its device VGI's decode to
-    # rebuild, and the port ships (its decode rebuilds nothing for VGI)
+    # whose ori_points_valid both packages drop for their device VGI's
+    # decode to rebuild from vgi_num_points
     full = collate.collate_padded(_samples(2, **TARGET), 256)
     for batch in (host, full):
         got = common.device_batch(batch, "cpu", strip_ema, strip_keys)
@@ -420,12 +420,33 @@ def test_device_batch_matches_jax(strip_ema, strip_keys):
         assert all(isinstance(v, torch.Tensor) for v in got.values())
         if batch is full:
             assert "ori_points_valid" not in want
-            np.testing.assert_array_equal(got.pop("ori_points_valid"),
-                                          batch["ori_points_valid"])
+            assert "ori_points_valid" not in got
+            np.testing.assert_array_equal(
+                common.decode_batch(got, "cpu")["ori_points_valid"],
+                batch["ori_points_valid"])
         assert_same(_as_numpy(got), _as_numpy(want))
     assert "feats_ones" in got and "feats" not in got
     assert ("ema_map" in got) != strip_ema
     assert "seg_label" not in got or not strip_keys
+
+
+def test_decode_widens_the_raw_vgi_wire_like_jax():
+    """The raw VGI inputs of a collated target batch, through each
+    package's device_batch and decode: ``ori_points`` from its int16 fixed
+    point, ``ori_points_valid`` from ``vgi_num_points``, the labels
+    widened; equal values."""
+    batch = collate.collate_padded(_samples(2, **TARGET), 256)
+    batch["proj_xy"] = np.arange(2 * 256 * 2, dtype=np.int16).reshape(
+        2, 256, 2)
+    assert batch["ori_points"].dtype == np.int16
+    got = common.decode_batch(common.device_batch(batch, "cpu"), "cpu")
+    want = jax_common.decode_batch(jax_common.device_batch(batch))
+    for k in ("ori_points", "ori_points_valid", "ori_pseudo_label_3d",
+              "proj_xy", "vgi_num_points", "obj_pc", "obj_valid"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    assert got["ori_points"].dtype == torch.float32
+    assert got["ori_pseudo_label_3d"].dtype == torch.int64
 
 
 def test_device_batch_copies():

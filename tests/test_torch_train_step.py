@@ -24,8 +24,7 @@ on the other side of the kink moves the gradient of every encoder tensor by
 * (c) The port sorts points itself: the step on shuffled scans gives the
   losses of the step on sorted scans.
 * Each path the port does not have yet raises ``NotImplementedError``
-  naming its ROADMAP item: device VGI (VGI on a target batch without host
-  VGI's ``hp_cat_*`` keys), another 3D backbone and the depth head (M14), a
+  naming its ROADMAP item: another 3D backbone and the depth head (M14), a
   device mesh (M13).
 """
 
@@ -305,13 +304,10 @@ def test_step_on_shuffled_points():
                                    err_msg=k, **LOSS_TOL)
 
 
-@pytest.mark.parametrize("case,item", [("device_vgi", "M14"),
-                                       ("backbone", "M14"), ("mesh", "M13"),
+@pytest.mark.parametrize("case,item", [("backbone", "M14"), ("mesh", "M13"),
                                        ("depth", "M14")])
 def test_unported_paths_raise(case, item):
     kw = {}
-    if case == "device_vgi":
-        kw["TRAIN.PC_MM.lambda_pc_mm"] = 0.1
     if case == "backbone":
         kw["MODEL_3D.TYPE"] = "SPVCNN"
     if case == "depth":
