@@ -165,7 +165,23 @@ Phases, in order; any failure exits non-zero:
    whose host plans overflow ``native_loader.FIXUP_BUDGET`` (patched to 1
    in this process) keeps its raw VGI inputs and trains through the device
    route.
-12. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
+12. Segment-Anything (``mopa_tpu_torch.models.sam``; plain PyTorch, no
+   kernel of the repo), float32 with TF32 off: (a) ViT-H at its published
+   widths (depth 32, dim 1280, 16 heads, window 14, global blocks 7, 15,
+   23, 31) with seeded random weights built on the card, ``SAM.encode`` on
+   one 1024 x 1024 image: 5 warm calls (ms, peak MiB), the FLOPs counted
+   from the shapes and TFLOP/s, a traced call's busy and idle share; the
+   embeddings finite and two calls bit-equal. (b) ``generate_mask_id_map``
+   at 1024 with 32 x 32 prompts, mask budget 64, IoU above 0.7: ms per id
+   map, split by the ``sam/encode``, ``sam/decode`` and ``sam/rasterize``
+   ranges of a traced call, the masks written; then one id map with no
+   IoU cut, which must hold a mask. Each id map and a seeded probability
+   map give a finite ``losses.mask_cons_loss``. (c) ViT-B at
+   1024, one set of weights and one image on the card and on the CPU:
+   embeddings, decoded masks and IoU scores within 1e-3 x max|ref|, id maps
+   (8 x 8 prompts, no IoU cut) equal on >= 0.999 of the pixels. (d) K1,
+   K2 and P1/P2 launch 0 times in the phase.
+13. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
    and ``kernel_route`` the conv kernels' route on the main path, whose
    launches are phase 7's), the card line, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -178,6 +194,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -2581,6 +2598,226 @@ def device_vgi_phase(device, report: dict, host_pairs: dict) -> dict:
     return out
 
 
+SAM_IMG = 1024          # segment-anything's input side
+SAM_POINTS = 32         # points per side of the id map (1,024 prompts)
+SAM_CHECK_POINTS = 8    # points per side of the card-vs-CPU id maps
+SAM_MASK_BUDGET = 64    # TPU.SAM_MASK_BUDGET
+SAM_IOU_THRESH = 0.7
+SAM_TOL = 1e-3          # card vs CPU, of max|ref|
+SAM_AGREE_MIN = 0.999   # card vs CPU id maps, share of equal pixels
+SAM_TIMED = 5
+
+
+def sam_encoder_flops(variant: str, img_size: int, window: int = 14) -> dict:
+    """FLOPs (2 per multiply-add) of one ``SAM.encode`` as the port runs it:
+    windowed blocks project their zero-padded windows; the attention's
+    scores, relative-position bias and values; patch embedding and neck."""
+    from mopa_tpu_torch.models.sam import PATCH, VARIANTS
+
+    v = VARIANTS[variant]
+    d, g = v["dim"], -(-img_size // PATCH)
+    t = g * g
+    out = {"patch_embed": 2 * t * d * 3 * PATCH * PATCH,
+           "neck": 2 * t * 256 * (d + 9 * 256),
+           "gemm": 0, "attention": 0}
+    for i in range(v["depth"]):
+        win = g if i in v["global_idx"] else window
+        n_win = (-(-g // win)) ** 2
+        tp, n = n_win * win * win, win * win
+        out["gemm"] += 2 * tp * d * 4 * d + 2 * t * d * 8 * d
+        out["attention"] += 2 * n_win * n * d * (2 * n + 2 * win)
+    out["total"] = sum(out.values())
+    return out
+
+
+def sam_encode_check(device) -> tuple:
+    """(a): ViT-H encode on one 1024 x 1024 image: warm times, peak memory,
+    FLOPs and TFLOP/s, a traced call; two calls must agree bit for bit."""
+    import torch
+
+    from mopa_tpu_torch.models import sam as sam_mod
+    from mopa_tpu_torch.tools.gather_micro import PEAK_FLOPS
+
+    t0 = time.perf_counter()
+    model = sam_mod.SAM("vit_h", SAM_IMG, device=device, seed=0).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(12)
+    image = torch.randn(SAM_IMG, SAM_IMG, 3, generator=gen, device=device)
+    with torch.no_grad():
+        first, first_ms, _ = timed_call(model.encode, image[None])
+        runs = [timed_call(model.encode, image[None])
+                for _ in range(SAM_TIMED)]
+        prof = profile_call(lambda: model.encode(image[None]), ())
+    emb = runs[-1][0]
+    if emb.shape != (1, SAM_IMG // 16, SAM_IMG // 16, 256) \
+            or not bool(torch.isfinite(emb).all()):
+        fail("ViT-H embeddings: shape {}, finite {}".format(
+            tuple(emb.shape), bool(torch.isfinite(emb).all())))
+    if not torch.equal(first, emb):
+        fail("two ViT-H encodes differ: max |diff| {}".format(
+            float((first - emb).abs().max())))
+    ms = [r[1] for r in runs]
+    flops = sam_encoder_flops("vit_h", SAM_IMG)
+    median = statistics.median(ms)
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "build_s": build_s, "first_ms": first_ms, "ms": ms,
+           "median_ms": median, "peak_mib": max(r[2] for r in runs),
+           "flops": flops, "tflops_per_s": flops["total"] / median / 1e9,
+           "f32_peak_share": flops["total"] / median / 1e-3
+           / PEAK_FLOPS["float32"],
+           "profile": prof}
+    print("SAM ViT-H encode at {0}x{0} (f32, TF32 off): {1} parameters "
+          "built in {2:.2f} s; first call {3:.2f} ms; warm ms {4}, median "
+          "{5:.2f}; peak {6:.0f} MiB; {7:.4e} FLOP ({8}); {9:.2f} TFLOP/s, "
+          "{10:.3f} of the f32 peak; traced wall {11} ms, busy {12} ms, "
+          "idle {13}; top kernels {14}".format(
+              SAM_IMG, out["params"], build_s, first_ms, ms, median,
+              out["peak_mib"], flops["total"], flops, out["tflops_per_s"],
+              out["f32_peak_share"], prof.get("wall_ms"),
+              prof.get("device_busy_ms"), prof.get("device_idle_share"),
+              prof.get("top_device_ms", [])[:6]), flush=True)
+    return model, image, out
+
+
+def sam_id_map_check(model, image, device) -> dict:
+    """(b): ``generate_mask_id_map`` at 1024 with 32 x 32 prompts, timed and
+    traced by its ``sam/*`` ranges; then once with no IoU cut. Each id map
+    and a seeded probability map give a finite ``mask_cons_loss``; the map
+    without the cut must hold a mask."""
+    import torch
+
+    from mopa_tpu_torch.models import losses
+    from mopa_tpu_torch.models import sam as sam_mod
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    probs = torch.softmax(torch.randn(1, SAM_IMG, SAM_IMG, NUM_CLASSES,
+                                      generator=gen, device=device), -1)
+
+    def run(iou_thresh=SAM_IOU_THRESH):
+        return sam_mod.generate_mask_id_map(
+            model, image, points_per_side=SAM_POINTS,
+            mask_budget=SAM_MASK_BUDGET, iou_thresh=iou_thresh,
+            img_size=SAM_IMG)
+
+    def consumed(id_map) -> dict:
+        ids = id_map.unique()
+        if id_map.shape != (SAM_IMG, SAM_IMG) \
+                or id_map.dtype != torch.int32 or not bool(
+                    ((ids == -100) | ((ids >= 0) & (ids < SAM_MASK_BUDGET)))
+                    .all()):
+            fail("SAM id map: shape {}, dtype {}, ids {}".format(
+                tuple(id_map.shape), id_map.dtype, ids.tolist()))
+        loss = float(losses.mask_cons_loss(probs, id_map[None],
+                                           SAM_MASK_BUDGET))
+        if not math.isfinite(loss):
+            fail("mask_cons_loss on the SAM id map: {}".format(loss))
+        return {"masks_written": int((ids >= 0).sum()),
+                "assigned_share": float((id_map >= 0).float().mean()),
+                "mask_cons_loss": loss}
+
+    id_map, first_ms, _ = timed_call(run)
+    runs = [timed_call(run) for _ in range(3)]
+    if not all(torch.equal(r[0], id_map) for r in runs):
+        fail("SAM id maps differ between calls")
+    prof = profile_call(run, sam_mod.STAGES)
+    ms = [r[1] for r in runs]
+    out = {"first_ms": first_ms, "ms": ms, "median_ms": statistics.median(ms),
+           "peak_mib": max(r[2] for r in runs), **consumed(id_map),
+           "no_cut": consumed(run(-1e9)),
+           "stages": {k: prof.get("stages", {}).get(k) for k in
+                      sam_mod.STAGES},
+           "wall_ms": prof.get("wall_ms"),
+           "device_busy_ms": prof.get("device_busy_ms"),
+           "device_idle_share": prof.get("device_idle_share"),
+           "top_device_ms": prof.get("top_device_ms")}
+    if not out["no_cut"]["masks_written"]:
+        fail("the SAM id map without an IoU cut holds no mask")
+    by_range = {k: [(v or {}).get(f) for f in ("host_ms", "device_kernel_ms",
+                                                "device_span_ms")]
+                for k, v in out["stages"].items()}
+    print("SAM id map ({0}x{0}, {1}x{1} prompts, budget {2}, iou > {3}): "
+          "first {4:.2f} ms; warm ms {5}, median {6:.2f}; peak {7:.0f} MiB; "
+          "{8} masks written, {9:.3f} of the pixels assigned, "
+          "mask_cons_loss {10:.6f}; without the IoU cut {11}; traced wall "
+          "{12} ms, busy {13} ms, idle {14}; by range (host ms, kernel ms, "
+          "device span ms) {15}; top kernels {16}".format(
+              SAM_IMG, SAM_POINTS, SAM_MASK_BUDGET, SAM_IOU_THRESH, first_ms,
+              ms, out["median_ms"], out["peak_mib"], out["masks_written"],
+              out["assigned_share"], out["mask_cons_loss"], out["no_cut"],
+              out["wall_ms"], out["device_busy_ms"],
+              out["device_idle_share"], by_range,
+              (out["top_device_ms"] or [])[:6]), flush=True)
+    return out
+
+
+def sam_card_vs_cpu(device) -> dict:
+    """(c): ViT-B at 1024 with the same weights and image on the card and
+    the CPU: embeddings, decoded masks and IoU scores within
+    ``SAM_TOL`` x max|ref|; id maps (8 x 8 prompts, no IoU cut) equal on
+    ``SAM_AGREE_MIN`` of the pixels."""
+    import torch
+
+    from mopa_tpu_torch.models import sam as sam_mod
+
+    cpu = sam_mod.SAM("vit_b", SAM_IMG, device="cpu", seed=1).eval()
+    card = sam_mod.SAM("vit_b", SAM_IMG, device=device).eval()
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(14)
+    image = torch.randn(SAM_IMG, SAM_IMG, 3, generator=gen)
+    points = torch.rand(8, 2, 2, generator=gen) * SAM_IMG
+    labels = torch.tensor([[1.0, 0.0], [1.0, 1.0]]).repeat(4, 1)
+    out = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        emb_ref = cpu.encode(image[None])
+        masks_ref, iou_ref = cpu.decode(emb_ref.expand(8, -1, -1, -1),
+                                        points, labels)
+        out["cpu_s"] = time.perf_counter() - t0
+        emb = card.encode(image.to(device)[None])
+        masks, iou = card.decode(emb.expand(8, -1, -1, -1),
+                                 points.to(device), labels.to(device))
+    for name, got, ref in (("embeddings", emb, emb_ref),
+                           ("masks", masks, masks_ref), ("iou", iou, iou_ref)):
+        err = float((got.cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        out[name] = {"max_abs_err": err, "max_abs_ref": scale}
+        if not err <= SAM_TOL * scale:
+            fail("SAM ViT-B {} on the card vs the CPU: max |err| {} > {} x "
+                 "{}".format(name, err, SAM_TOL, scale))
+    kw = dict(points_per_side=SAM_CHECK_POINTS, mask_budget=SAM_MASK_BUDGET,
+              iou_thresh=-1e9, img_size=SAM_IMG)
+    ref = sam_mod.generate_mask_id_map(cpu, image, **kw)
+    got = sam_mod.generate_mask_id_map(card, image, **kw).cpu()
+    differ = int((got != ref).sum())
+    out["id_map"] = {"agreement": 1.0 - differ / ref.numel(),
+                     "differing_pixels": differ,
+                     "masks_written": int((ref.unique() >= 0).sum())}
+    print("SAM ViT-B card vs CPU at {}: {}".format(SAM_IMG, out), flush=True)
+    if out["id_map"]["agreement"] < SAM_AGREE_MIN:
+        fail("SAM ViT-B id maps on the card vs the CPU: {}".format(
+            out["id_map"]))
+    return out
+
+
+def sam_phase(device) -> dict:
+    """Phase 12: Segment-Anything, (a)-(d) of the module docstring."""
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+
+    scc.reset_launch_counts()
+    model, image, encode = sam_encode_check(device)
+    out = {"encode": encode, "id_map": sam_id_map_check(model, image, device)}
+    del model, image
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = sam_card_vs_cpu(device)
+    out["launches"] = dict(scc.launches)
+    if any(out["launches"].values()):
+        fail("the SAM phase launched {}".format(out["launches"]))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2720,7 +2957,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("device_vgi")
 
-    # -- phase 12: summary lines; each conv kernel at the shapes the shipped
+    # -- phase 12: Segment-Anything (no kernel of the repo on its path)
+    report["sam"] = sam_phase(device)
+    torch.cuda.empty_cache()
+    lap("sam")
+
+    # -- phase 13: summary lines; each conv kernel at the shapes the shipped
     # step gives it (the fused 8 + 8 + 8-scan plan, bfloat16) with its
     # launches in phase 7, each probe kernel at the probe's
     train_launches = report["mopa"]["launches"]

@@ -18,6 +18,9 @@ training loop ``train.common.train`` with its two-stream ``.pth``
 checkpoints (the JAX package's format, so runs resume across the two
 packages), ``data.utils.validate.validate``, ``test.test.test_model`` and
 the command lines ``train.train_{baseline,xmuda,xmuda_mopa}`` and
-``test.test``.
+``test.test``; and Segment-Anything (``models.sam``: ``SAM``,
+``import_sam_checkpoint``, ``generate_mask_id_map``), the offline mask
+writer ``data.sam_refine`` and the attention blocks of
+``models.attention``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

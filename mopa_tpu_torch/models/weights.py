@@ -10,8 +10,16 @@ modules carry the flax names, so the only renaming is ``.kernel`` ->
 * ConvTranspose ``(H, W, I, O)`` -> ``(I, O, H, W)``, spatially flipped (flax
   applies the kernel without the flip torch uses);
 * Dense ``(I, O)`` -> ``(O, I)``;
-* SCN conv ``(K, Cin, Cout)`` and batch-norm ``scale/bias/mean/var`` unchanged.
+* SCN conv ``(K, Cin, Cout)`` and batch-norm ``scale/bias/mean/var`` unchanged;
+* layer norm: the port's ``LayerNorm`` (``models/sam.py``) keeps flax's
+  ``scale`` / ``bias`` names, so they cross unchanged;
+* raw parameters (SAM's channels-last ``pos_embed``, ``rel_pos_h/w``,
+  ``iou_token``, ``mask_tokens``, ``pe_gaussian`` and the prompt
+  embeddings) unchanged.
 
+flax names that hold dots (``mlp.lin1`` in a SAM decoder block,
+``layers.0``, ``hyper_mlps.0.layers.2``) flatten to the same string as the
+port's nested modules and ``nn.ModuleList`` indices, so they need no rule.
 A missing or extra name, or a shape that does not fit, raises.
 :func:`to_flax` maps port tensors (parameters, their gradients or updates,
 optimizer moments, buffers) back to flax names and layouts, and
