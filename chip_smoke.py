@@ -181,10 +181,32 @@ Phases, in order; any failure exits non-zero:
    embeddings, decoded masks and IoU scores within 1e-3 x max|ref|, id maps
    (8 x 8 prompts, no IoU cut) equal on >= 0.999 of the pixels. (d) K1,
    K2 and P1/P2 launch 0 times in the phase.
-13. Print the kernels line (JSON; ``route`` is the build route, ``cuda``,
-   and ``kernel_route`` the conv kernels' route on the main path, whose
-   launches are phase 7's), the card line, then ``{"ok": true, "device":
-   {...}}`` as the last line.
+13. The other 3D backbones and the depth head (:func:`backbone_phase`),
+   their batches made as the train loader makes them (``SyntheticSCN`` at
+   the KITTI geometry, ``collate_padded`` with host plans of the
+   backbone's levels): (a) K1 and K2 at every conv shape of SPVCNN
+   (:func:`spvcnn_conv_shapes`: the stem's 4 -> 32, the encoder's and the
+   decoder's, among them the ones wider than 192 channels, K1 128 -> 256,
+   256 -> 256 and 384 -> 256, ``d_feats`` at 384 and 256, ``d_w`` 384 x 256
+   and 256 x 256) against their twins on the 5-level plan of 8 + 8 scans,
+   in bfloat16 and float32 at phase 3's limits, each call's launches equal
+   to its column blocks;
+   (b) the SPVCNN xMUDA step at its published widths in bfloat16 (8 + 8
+   scans, pseudo labels): launches per kernel and route (both routes: the
+   decoder runs in float32, as in JAX), losses falling over 5 steps on one
+   batch, the median of 5 warm steps, peak MiB, a traced step's busy and
+   idle share; ``validate()`` on 4 val scans; the float32 1 + 1 step on the
+   card and in the port on the CPU, losses within 1e-3; (c) the same for
+   SalsaNext on 64 x 1024 range images, with no launch of the five kernels;
+   (d) the shipped MoPA step (phase 7's target batch) with
+   ``TRAIN.DEPTH_PRED`` and ``lambda_dp_src`` 0.1, its ms beside phase 7's
+   and a finite ``depth_pred_loss``; (e) ``python -m
+   mopa_tpu_torch.train.train_xmuda`` on ``mopa_smoke.yaml`` with
+   ``MODEL_3D.TYPE`` SPVCNN and SalsaNext, exit 0 with its checkpoints.
+   Then print the kernels line (JSON; ``route`` is the build route,
+   ``cuda``, and ``kernel_route`` the conv kernels' route on the main path,
+   whose launches are phase 7's), the card line, then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 Weights are random from a seed. Details go to ``chiprun_out/chip_smoke.json``.
 Nothing here imports JAX or the JAX package.
@@ -342,100 +364,113 @@ def kernel_phase(plans: dict, backward_plan: str, device) -> list:
     plan, conv, dtype) with the error, the times and the bound."""
     import torch
 
-    from mopa_tpu_torch.ops import sparse_conv as sc
-    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
-    from mopa_tpu_torch.tools import gather_micro as gm
-
     gen = torch.Generator(device=device).manual_seed(1)
     rows = []
     for plan_name, plan in plans.items():
         for name, level, cin, cout in conv_shapes():
-            lv = plan.levels[level]
-            v = lv.valid.shape[0]
-            codes = lv.sel.long()
-            pairs = sum(int((((codes >> (2 * j)) & 3) != 3).sum())
-                        for j in range(3))
-            plan_bytes = 2 * v * 9 * 4
-            # (tile, column) blocks the tensor-core conv kernel stages
-            col_tiles = int(scc.tile_columns(lv.ranks, lv.sel, v).sum())
-            for dtype in (torch.float32, torch.bfloat16):
-                dt_name = str(dtype).split(".")[-1]
-                tag = "{} {} {}".format(plan_name, name, dt_name)
-                esz = torch.tensor([], dtype=dtype).element_size()
-                # batch norm writes its bias into padding rows: no input
-                # row is zero, padding included
-                feats = torch.randn((v, cin), generator=gen, device=device
-                                    ).to(dtype)
-                w = (torch.randn((27, cin, cout), generator=gen,
-                                 device=device)
-                     * (2.0 / (27 * cin)) ** 0.5).to(dtype)
-                g = torch.randn((v, cout), generator=gen, device=device
-                                ).to(dtype)
-                cases = [(K1, True,
-                          lambda: scc.submanifold_conv_wide_cuda(
-                              feats, lv.ranks, lv.sel, w),
-                          lambda: sc.submanifold_conv_wide_ref(
-                              feats, lv.ranks, lv.sel, w),
-                          (v * cin + 27 * cin * cout + v * cout) * esz
-                          + plan_bytes)]
-                if plan_name == backward_plan:
-                    cases += [
-                        (K2_DFEATS, True,
-                         lambda: scc.submanifold_conv_wide_bwd_dfeats_cuda(
-                             g, lv.ranks, lv.sel, w),
-                         lambda: sc.submanifold_conv_wide_dfeats_ref(
-                             g, lv.ranks, lv.sel, w),
-                         (v * cout + 27 * cin * cout + v * cin) * esz
-                         + plan_bytes),
-                        (K2_DW, False,
-                         lambda: scc.submanifold_conv_wide_bwd_dw_cuda(
-                             g, feats, lv.ranks, lv.sel),
-                         lambda: sc.submanifold_conv_wide_dw_ref(
-                             g, feats, lv.ranks, lv.sel),
-                         (v * cout + v * cin) * esz + 27 * cin * cout * 4
-                         + plan_bytes)]
-                for kernel, elementwise, kern, plain, nbytes in cases:
-                    got, ref = kern(), plain()
-                    torch.cuda.synchronize()
-                    err, ref_max, tol = _check(kernel, tag, got, ref,
-                                               elementwise)
-                    row = {
-                        "kernel": kernel, "plan": plan_name, "conv": name,
-                        "cin": cin, "cout": cout, "voxel_rows": v,
-                        "neighbour_pairs": pairs, "dtype": dt_name,
-                        "route": scc.route_for(dtype),
-                        "max_abs_err": err, "max_abs_ref": ref_max,
-                        "tolerance": tol,
-                        "ms": gm.median_ms(kern, TIMED_LAUNCHES, device),
-                        "plain_ms": gm.median_ms(plain, TIMED_LAUNCHES,
-                                                 device),
-                        "bytes_ms": nbytes / gm.HBM_BYTES_PER_S * 1e3,
-                        "ops_ms": 2 * cin * cout * pairs
-                        / gm.PEAK_FLOPS[dt_name] * 1e3}
-                    row["bound_share"] = max(row["bytes_ms"],
-                                             row["ops_ms"]) / row["ms"]
-                    if kernel != K2_DW:
-                        # the dense MMA work of the staged (tile, column)
-                        # blocks: 3 slots x all channels, pairs or not
-                        kp, np_ = scc.conv_tile_shape(
-                            *((cin, cout) if kernel == K1 else (cout, cin)))
-                        row["tile_ops_ms"] = (
-                            2 * col_tiles * scc.TILE_M * kp * np_
-                            / gm.PEAK_FLOPS["bfloat16"] * 1e3)
-                    if kernel == K2_DW and name == "l0_conv2":
-                        again = kern()
-                        row["same_bits_on_rerun"] = bool(torch.equal(got,
-                                                                     again))
-                        if not row["same_bits_on_rerun"]:
-                            fail("K2 d_w gave other bits on a rerun at "
-                                 + tag)
-                    rows.append(row)
-                    print("{kernel} {plan} {conv} ({cin},{cout}) {dtype} "
-                          "[{route}]: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                          "bound {b:.4f} ms, share {bound_share:.3f}) "
-                          "max|err| {max_abs_err:.3g}".format(
-                              b=max(row["bytes_ms"], row["ops_ms"]), **row),
-                          flush=True)
+            rows += shape_rows(plan_name, name, plan.levels[level], cin, cout,
+                               plan_name == backward_plan, gen, device)
+    return rows
+
+
+def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
+               backward: bool, gen, device,
+               timed: int = TIMED_LAUNCHES) -> list:
+    """K1 (and with ``backward`` K2's two kernels) against their plain twins
+    on plan level ``lv`` at Cin -> Cout, in float32 and bfloat16: a row each
+    with the error, the times (medians of ``timed`` calls), the bound, and
+    the launches one call makes (its column blocks)."""
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv as sc
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.tools import gather_micro as gm
+
+    rows = []
+    v = lv.valid.shape[0]
+    codes = lv.sel.long()
+    pairs = sum(int((((codes >> (2 * j)) & 3) != 3).sum()) for j in range(3))
+    plan_bytes = 2 * v * 9 * 4
+    # (tile, column) blocks the tensor-core conv kernel stages
+    col_tiles = int(scc.tile_columns(lv.ranks, lv.sel, v).sum())
+    for dtype in (torch.float32, torch.bfloat16):
+        dt_name = str(dtype).split(".")[-1]
+        tag = "{} {} {}".format(plan_name, name, dt_name)
+        esz = torch.tensor([], dtype=dtype).element_size()
+        # batch norm writes its bias into padding rows: no input row is
+        # zero, padding included
+        feats = torch.randn((v, cin), generator=gen, device=device).to(dtype)
+        w = (torch.randn((27, cin, cout), generator=gen, device=device)
+             * (2.0 / (27 * cin)) ** 0.5).to(dtype)
+        g = torch.randn((v, cout), generator=gen, device=device).to(dtype)
+        cases = [(K1, True,
+                  lambda: scc.submanifold_conv_wide_cuda(feats, lv.ranks,
+                                                         lv.sel, w),
+                  lambda: sc.submanifold_conv_wide_ref(feats, lv.ranks,
+                                                       lv.sel, w),
+                  (v * cin + 27 * cin * cout + v * cout) * esz + plan_bytes)]
+        if backward:
+            cases += [
+                (K2_DFEATS, True,
+                 lambda: scc.submanifold_conv_wide_bwd_dfeats_cuda(
+                     g, lv.ranks, lv.sel, w),
+                 lambda: sc.submanifold_conv_wide_dfeats_ref(
+                     g, lv.ranks, lv.sel, w),
+                 (v * cout + 27 * cin * cout + v * cin) * esz + plan_bytes),
+                (K2_DW, False,
+                 lambda: scc.submanifold_conv_wide_bwd_dw_cuda(
+                     g, feats, lv.ranks, lv.sel),
+                 lambda: sc.submanifold_conv_wide_dw_ref(
+                     g, feats, lv.ranks, lv.sel),
+                 (v * cout + v * cin) * esz + 27 * cin * cout * 4
+                 + plan_bytes)]
+        for kernel, elementwise, kern, plain, nbytes in cases:
+            scc.reset_launch_counts()
+            got = kern()
+            per_call = scc.launches[kernel]
+            ref = plain()
+            torch.cuda.synchronize()
+            err, ref_max, tol = _check(kernel, tag, got, ref, elementwise)
+            out_width = cin if kernel == K2_DFEATS else cout
+            if per_call != len(scc.column_blocks(out_width)):
+                fail("{} at {} launched {} times for {} output columns"
+                     .format(kernel, tag, per_call, out_width))
+            row = {
+                "kernel": kernel, "plan": plan_name, "conv": name,
+                "cin": cin, "cout": cout, "voxel_rows": v,
+                "neighbour_pairs": pairs, "dtype": dt_name,
+                "route": scc.route_for(dtype), "launches_per_call": per_call,
+                "max_abs_err": err, "max_abs_ref": ref_max,
+                "tolerance": tol,
+                "ms": gm.median_ms(kern, timed, device),
+                "plain_ms": gm.median_ms(plain, timed, device),
+                "bytes_ms": nbytes / gm.HBM_BYTES_PER_S * 1e3,
+                "ops_ms": 2 * cin * cout * pairs / gm.PEAK_FLOPS[dt_name]
+                * 1e3}
+            row["bound_share"] = max(row["bytes_ms"], row["ops_ms"]) \
+                / row["ms"]
+            if kernel != K2_DW:
+                # the dense MMA work of the staged (tile, column) blocks:
+                # 3 slots x all channels, pairs or not, per column block
+                k_in = cin if kernel == K1 else cout
+                tiles = [scc.conv_tile_shape(k_in, c1 - c0)
+                         for c0, c1 in scc.column_blocks(out_width)]
+                row["tile_ops_ms"] = (2 * col_tiles * scc.TILE_M
+                                      * sum(kp * np_ for kp, np_ in tiles)
+                                      / gm.PEAK_FLOPS["bfloat16"] * 1e3)
+            if kernel == K2_DW and name == "l0_conv2":
+                again = kern()
+                row["same_bits_on_rerun"] = bool(torch.equal(got, again))
+                if not row["same_bits_on_rerun"]:
+                    fail("K2 d_w gave other bits on a rerun at " + tag)
+            rows.append(row)
+            print("{kernel} {plan} {conv} ({cin},{cout}) {dtype} [{route}, "
+                  "{launches_per_call} launch(es) a call]: {ms:.4f} ms "
+                  "(plain {plain_ms:.4f} ms, bound {b:.4f} ms, share "
+                  "{bound_share:.3f}) max|err| {max_abs_err:.3g}".format(
+                      b=max(row["bytes_ms"], row["ops_ms"]), **row),
+                  flush=True)
+    scc.reset_launch_counts()
     return rows
 
 
@@ -1883,9 +1918,11 @@ def check_run_files(run_dir: str, iterations, gone=()) -> None:
                 fail("the checkpoint ring kept {}".format(name))
 
 
-def run_cli(module: str, args: list, out_dir: str) -> dict:
+def run_cli(module: str, args: list, out_dir: str,
+            log_name: str | None = None) -> dict:
     """One CLI as a subprocess from the checkout's root; fails on a
-    non-zero exit. Its output goes to ``chiprun_out/cli_<name>.log``."""
+    non-zero exit. Its output goes to ``chiprun_out/cli_<log_name>.log``
+    (the module's last name by default)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
                                      if env.get("PYTHONPATH") else "")
@@ -1894,7 +1931,8 @@ def run_cli(module: str, args: list, out_dir: str) -> dict:
                          env=env, capture_output=True, text=True,
                          timeout=CLI_TIMEOUT_S)
     wall = time.perf_counter() - t0
-    log = ROOT / "chiprun_out" / "cli_{}.log".format(module.rsplit(".")[-1])
+    log = ROOT / "chiprun_out" / "cli_{}.log".format(
+        log_name or module.rsplit(".")[-1])
     log.parent.mkdir(exist_ok=True)
     log.write_text(res.stdout + "\n--- stderr ---\n" + res.stderr)
     if res.returncode != 0:
@@ -2818,6 +2856,291 @@ def sam_phase(device) -> dict:
     return out
 
 
+# -- phase 13: the other 3D backbones and the depth head
+RANGE_HW = (64, 1024)  # SemanticKITTISCN's proj_H x proj_W
+SYNTH_POINTS = 24000   # points per raw synthetic scan (phase 9's size)
+BACKBONE_VAL_SCANS = 4
+# launches timed for each SPVCNN conv shape no wider than COUT_MAX (the
+# shapes above it, which run as column blocks, take TIMED_LAUNCHES)
+NARROW_TIMED_LAUNCHES = 5
+
+
+def spvcnn_conv_shapes(cs=None, in_channels: int = 4) -> list:
+    """(conv, plan level, Cin, Cout) of SPVCNN's submanifold convs at channel
+    schedule ``cs`` (``DEFAULT_CS``), one for each distinct (level, Cin,
+    Cout), named after the first conv of that shape: the stem, each encoder
+    stage's residual blocks and each decoder stage's (the input of
+    ``upres{t}a`` holds the skip concat). The blocks' 1x1 skips are plain
+    matmuls, no K1 / K2."""
+    from mopa_tpu_torch.models.spvcnn import DEFAULT_CS
+
+    cs = DEFAULT_CS if cs is None else cs
+    convs = [("stem1", 0, in_channels, cs[0]), ("stem2", 0, cs[0], cs[0])]
+    for i in range(1, 5):
+        convs += [("res{}a.conv1".format(i), i, cs[i - 1], cs[i]),
+                  ("res{}a.conv2".format(i), i, cs[i], cs[i])]
+    for t, (level, cout, skip_c) in enumerate(
+            ((3, cs[5], cs[3]), (2, cs[6], cs[2]), (1, cs[7], cs[1]),
+             (0, cs[8], cs[0])), start=1):
+        convs += [("upres{}a.conv1".format(t), level, cout + skip_c, cout),
+                  ("upres{}a.conv2".format(t), level, cout, cout)]
+    seen, out = set(), []
+    for conv in convs:
+        if conv[1:] not in seen:
+            seen.add(conv[1:])
+            out.append(conv)
+    return out
+
+
+def backbone_cfg(backbone: str, dtype: str, batch_size: int = TRAIN_BATCH,
+                 depth: bool = False):
+    """The shipped model pair and schedule (:func:`make_cfg`) with
+    ``MODEL_3D.TYPE`` ``backbone`` (SPVCNN's 4 input channels); with
+    ``depth`` the MoPA step, VGI on, with ``TRAIN.DEPTH_PRED`` and
+    ``lambda_dp_src`` 0.1 (no shipped YAML sets it: this phase's choice).
+    The val stream is ``BACKBONE_VAL_SCANS`` synthetic scans."""
+    c = make_cfg(dtype, train=True, batch_size=batch_size, vgi=depth)
+    c.defrost()
+    c.MODEL_3D.TYPE = backbone
+    c.TRAIN.DEPTH_PRED = depth
+    c.TRAIN.DEPTH_PRED_COE.lambda_dp_src = 0.1 if depth else 0.0
+    c.DATASET_TARGET.TYPE = "SyntheticSCN"
+    c.DATASET_TARGET.VAL = ("val",)
+    t = c.DATASET_TARGET.SyntheticSCN
+    t.length = BACKBONE_VAL_SCANS
+    t.n_points = SYNTH_POINTS
+    t.image_size = IMAGE_SIZE
+    t.num_classes = NUM_CLASSES
+    t.proj_H, t.proj_W = RANGE_HW
+    c.VAL.BATCH_SIZE = 2
+    c.freeze()
+    return c
+
+
+def backbone_batches(cfg, start: int, batch_size: int = TRAIN_BATCH) -> tuple:
+    """(source, target) numpy batches of ``cfg``'s 3D inputs made as the
+    train loader makes them: ``SyntheticSCN`` scans (KITTI geometry,
+    ``SYNTH_POINTS`` points, the source with depth labels under
+    ``TRAIN.DEPTH_PRED``, the target with pseudo labels) collated at the
+    point budget, key-sorted, with host-built plans of the backbone's
+    levels (none for SalsaNext)."""
+    from mopa_tpu_torch.data.collate import collate_padded
+    from mopa_tpu_torch.data.synthetic import SyntheticSCN
+    from mopa_tpu_torch.models.build import plan_levels
+    from mopa_tpu_torch.models.scn_unet import capacity_schedule
+
+    levels = plan_levels(cfg)
+    caps = None if levels is None else capacity_schedule(POINT_BUDGET,
+                                                         levels)
+    out = []
+    for seed, kw in ((1, {"with_depth_label": bool(cfg.TRAIN.DEPTH_PRED)}),
+                     (2, {"with_pseudo_labels": True})):
+        ds = SyntheticSCN(length=start + batch_size, n_points=SYNTH_POINTS,
+                          image_size=IMAGE_SIZE, num_classes=NUM_CLASSES,
+                          backbone=cfg.MODEL_3D.TYPE, proj_H=RANGE_HW[0],
+                          proj_W=RANGE_HW[1], seed=seed, **kw)
+        out.append(collate_padded([ds[start + i] for i in range(batch_size)],
+                                  POINT_BUDGET, sort_points=True,
+                                  host_plan_capacities=caps))
+    return tuple(out)
+
+
+def no_dropout(models) -> None:
+    """Dropout rates to 0 in both nets (the card's and the CPU's generators
+    draw different masks)."""
+    for mod in list(models.model_2d.modules()) + list(
+            models.model_3d.modules()):
+        for name in ("dropout", "dropout_rate"):
+            if isinstance(getattr(mod, name, None), float):
+                setattr(mod, name, 0.0)
+
+
+def backbone_step(cfg, src, trg, device, tag: str, with_pl: bool = True,
+                  with_mopa: bool = False) -> dict:
+    """``cfg``'s train step at full width on the card: counted launches of
+    one step by kernel and route, losses falling over ``REPEATED_STEPS``
+    steps on the batch, the median of ``WARM_REQUESTS`` warm steps, peak
+    memory and one traced step. Returns (report, models)."""
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.train import trainer
+
+    models = trainer.build_models(cfg, device=device, seed=0)
+    state = trainer.create_train_state(cfg, models)
+    step = trainer.make_train_step(cfg, models, with_pl=with_pl,
+                                   with_mopa=with_mopa)
+    scc.reset_launch_counts()
+    (state, metrics), first_ms, _ = timed_call(step, state, src, trg)
+    out = {"first_ms": first_ms, "launches": dict(scc.launches),
+           "routes": {k: dict(v) for k, v in scc.routes.items()},
+           "losses": _losses(metrics)}
+    totals = []
+    for _ in range(REPEATED_STEPS):
+        state, metrics = step(state, src, trg)
+        losses = _losses(metrics)
+        if not all(math.isfinite(x) for x in losses.values()):
+            fail("{} step: non-finite loss {}".format(tag, losses))
+        totals.append(losses["total_loss"])
+    out["repeated_batch_total_loss"] = totals
+    if not totals[-1] < totals[0]:
+        fail("{} total_loss did not fall on a repeated batch: {}".format(
+            tag, totals))
+    out["last_losses"] = losses
+    warm = [timed_call(step, state, src, trg) for _ in range(WARM_REQUESTS)]
+    out["warm_steps_ms"] = [w[1] for w in warm]
+    out["warm_step_median_ms"] = statistics.median(out["warm_steps_ms"])
+    out["peak_mib"] = max(w[2] for w in warm)
+    prof = profile_call(lambda: step(state, src, trg), trainer.TRAIN_STAGES)
+    out["profile"] = prof
+    print("{}: first step {:.2f} ms; launches {}; by route {}; total_loss "
+          "over {} steps on one batch {}; warm ms {}, median {:.2f}; peak "
+          "{:.0f} MiB; traced wall {} ms, busy {} ms, idle {}; stages "
+          "(host ms, kernel ms) {}".format(
+              tag, first_ms, out["launches"], out["routes"], REPEATED_STEPS,
+              totals, out["warm_steps_ms"], out["warm_step_median_ms"],
+              out["peak_mib"], prof.get("wall_ms"),
+              prof.get("device_busy_ms"), prof.get("device_idle_share"),
+              {k: [round(v["host_ms"], 2), round(v["device_kernel_ms"], 2)]
+               for k, v in prof.get("stages", {}).items()}), flush=True)
+    return out, models
+
+
+def spvcnn_card_vs_cpu(device) -> dict:
+    """The float32 SPVCNN step of 1 + 1 scans on the card (K1 / K2 on the
+    CUDA-core route) and in the port on the CPU (the plain twins), the same
+    weights, dropout off: every loss within 1e-3 (relative)."""
+    from mopa_tpu_torch.train import trainer
+
+    cfg = backbone_cfg("SPVCNN", "float32", batch_size=1)
+    src, trg = backbone_batches(cfg, 0, batch_size=1)
+    losses = {}
+    for dev in (device, "cpu"):
+        models = trainer.build_models(cfg, device=dev, seed=0)
+        no_dropout(models)
+        state = trainer.create_train_state(cfg, models)
+        step = trainer.make_train_step(cfg, models, with_pl=True,
+                                       with_mopa=False)
+        losses[str(dev)] = _losses(step(state, src, trg)[1])
+    card, cpu = losses[str(device)], losses["cpu"]
+    worst = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
+    print("SPVCNN f32 1 + 1 step, card vs CPU: {}; largest relative "
+          "difference {:.3g}".format(losses, worst), flush=True)
+    if set(card) != set(cpu) or not worst <= 1e-3:
+        fail("SPVCNN f32 step, card vs CPU: {}".format(losses))
+    return {"losses": losses, "max_rel_diff": worst}
+
+
+def backbone_validate(cfg, models, tag: str) -> dict:
+    """``validate()`` over the ``BACKBONE_VAL_SCANS`` val scans."""
+    import logging
+
+    from mopa_tpu_torch.common.metric_logger import MetricLogger
+    from mopa_tpu_torch.data.build import build_dataloader
+    from mopa_tpu_torch.data.utils.validate import validate
+
+    t0 = time.perf_counter()
+    evals = validate(cfg, models, build_dataloader(cfg, "val", "target"),
+                     MetricLogger(), logging.getLogger("chip_smoke"))
+    out = {"s": time.perf_counter() - t0,
+           "points": {k: int(e.confusion_matrix.sum())
+                      for k, e in evals.items()},
+           "miou": {k: float(e.overall_iou) for k, e in evals.items()}}
+    print("{} validate() on {} val scans: {}".format(
+        tag, BACKBONE_VAL_SCANS, out), flush=True)
+    if not all(n > 0 for n in out["points"].values()):
+        fail("{} validate() scored no point: {}".format(tag, out))
+    return out
+
+
+def backbone_phase(device, report: dict, mopa_target) -> dict:
+    """Phase 13: (a) K1 / K2 against their twins at every conv shape of
+    SPVCNN, those wider than 192 channels among them, (b) the SPVCNN and (c) the SalsaNext xMUDA steps at full width,
+    (d) the shipped MoPA step with ``TRAIN.DEPTH_PRED``, (e) ``validate()``
+    and the ``train_xmuda`` CLI for both backbones."""
+    import tempfile
+
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.train.common import decode_batch
+    from mopa_tpu_torch.train import trainer
+
+    out = {}
+    cfg = backbone_cfg("SPVCNN", "bfloat16")
+    src, trg = backbone_batches(cfg, 0)
+    # (a) on the 5-level plan of the step's 8 + 8 scans
+    plan = trainer.build_train_plan(cfg, decode_batch(src, device),
+                                    decode_batch(trg, device), False)[0]
+    out["spvcnn_rows_per_level"] = [lv.valid.shape[0] for lv in plan.levels]
+    gen = torch.Generator(device=device).manual_seed(13)
+    out["wide_rows"], out["conv_rows"] = [], []
+    for name, level, cin, cout in spvcnn_conv_shapes():
+        wide = max(cin, cout) > scc.COUT_MAX
+        out["wide_rows" if wide else "conv_rows"] += shape_rows(
+            "spvcnn16", name, plan.levels[level], cin, cout, True, gen,
+            device, TIMED_LAUNCHES if wide else NARROW_TIMED_LAUNCHES)
+    del plan
+    # (b)
+    out["spvcnn"], models = backbone_step(cfg, src, trg, device,
+                                          "SPVCNN step bf16 8+8")
+    routes = out["spvcnn"]["routes"]
+    for name in (K1, K2_DFEATS, K2_DW):
+        if not (routes[name]["cuda-tensorcore"] > 0 and routes[name]["cuda"]
+                > 0):
+            fail("the SPVCNN step ran {} on routes {}: the bf16 encoder "
+                 "and the f32 decoder each need theirs".format(name,
+                                                               routes[name]))
+    out["spvcnn"]["validate"] = backbone_validate(cfg, models, "SPVCNN")
+    del models
+    torch.cuda.empty_cache()
+    out["spvcnn"]["card_vs_cpu"] = spvcnn_card_vs_cpu(device)
+    # (c)
+    cfg = backbone_cfg("SalsaNext", "bfloat16")
+    src, trg = backbone_batches(cfg, 0)
+    out["salsanext"], models = backbone_step(cfg, src, trg, device,
+                                             "SalsaNext step bf16 8+8 at "
+                                             "{}x{}".format(*RANGE_HW),
+                                             with_pl=False)
+    if any(out["salsanext"]["launches"].values()):
+        fail("the SalsaNext step launched {}".format(
+            out["salsanext"]["launches"]))
+    out["salsanext"]["validate"] = backbone_validate(cfg, models,
+                                                     "SalsaNext")
+    del models
+    torch.cuda.empty_cache()
+    # (d) the source with depth labels, phase 7's MoPA target batch
+    cfg = backbone_cfg("SCN", "bfloat16", depth=True)
+    src, _ = backbone_batches(cfg, 0)
+    out["depth"], models = backbone_step(cfg, src, mopa_target, device,
+                                         "MoPA step with the depth head",
+                                         with_mopa=True)
+    del models
+    torch.cuda.empty_cache()
+    if not math.isfinite(out["depth"]["losses"].get("depth_pred_loss",
+                                                    math.nan)):
+        fail("no finite depth_pred_loss: {}".format(out["depth"]["losses"]))
+    out["depth"]["phase7_step_median_ms"] = \
+        report["mopa"]["warm_step_median_ms"]
+    print("MoPA step with the depth head: median {:.2f} ms beside phase "
+          "7's {:.2f} ms".format(out["depth"]["warm_step_median_ms"],
+                                 out["depth"]["phase7_step_median_ms"]),
+          flush=True)
+    # (e) the CLI, mopa_smoke.yaml's size, each backbone
+    out["cli"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backbone in ("SPVCNN", "SalsaNext"):
+            cli_out = os.path.join(tmp, backbone)
+            run = run_cli("mopa_tpu_torch.train.train_xmuda",
+                          ["--cfg", SMOKE_YAML, "OUTPUT_DIR", cli_out,
+                           "MODEL_3D.TYPE", backbone], cli_out,
+                          log_name="train_xmuda_" + backbone)
+            cli_models_dir(cli_out)
+            out["cli"][backbone] = {"wall_s": run["wall_s"]}
+    print("train_xmuda CLI: {}".format(out["cli"]), flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2962,9 +3285,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("sam")
 
-    # -- phase 13: summary lines; each conv kernel at the shapes the shipped
-    # step gives it (the fused 8 + 8 + 8-scan plan, bfloat16) with its
-    # launches in phase 7, each probe kernel at the probe's
+    # -- phase 13: SPVCNN (K1 / K2 above 192 channels), SalsaNext, the depth
+    # head
+    report["backbones"] = backbone_phase(device, report, batches_m[0][1])
+    torch.cuda.empty_cache()
+    lap("backbones")
+
+    # -- summary lines; each conv kernel at the shapes the shipped step
+    # gives it (the fused 8 + 8 + 8-scan plan, bfloat16) with its launches
+    # in phase 7, each probe kernel at the probe's
     train_launches = report["mopa"]["launches"]
 
     def main_rows(kernel, dtype="bfloat16"):

@@ -21,6 +21,8 @@ the command lines ``train.train_{baseline,xmuda,xmuda_mopa}`` and
 ``test.test``; and Segment-Anything (``models.sam``: ``SAM``,
 ``import_sam_checkpoint``, ``generate_mask_id_map``), the offline mask
 writer ``data.sam_refine`` and the attention blocks of
-``models.attention``.
+``models.attention``; and the other 3D backbones, ``models.spvcnn`` (its
+convs on the same kernels, which take any width) and ``models.salsanext``,
+with the depth head of ``models.resnet34_unet`` (``TRAIN.DEPTH_PRED``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -61,8 +61,9 @@
 //   - Epilogue: float32 -> bf16 through shared memory, written as 16-byte
 //     rows.
 //
-// * float32 (only the checking paths: chip_smoke's f32 rows and its float32
-//   1 + 1 steps): subm_conv_f32_kernel, CUDA cores, so float32 stays within
+// * float32 (the checking paths: chip_smoke's f32 rows and its float32
+//   1 + 1 steps; and SPVCNN's decoder, float32 as in the JAX package):
+//   subm_conv_f32_kernel, CUDA cores, so float32 stays within
 //   1e-4 of the plain twin (TF32 would not). A CTA owns 64 voxels x all Cout
 //   in registers, resolves its voxels' 27 source rows, and per offset that
 //   any voxel has stages the gathered rows and the weight slice in 32-channel

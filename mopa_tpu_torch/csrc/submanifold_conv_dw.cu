@@ -55,7 +55,8 @@
 //   - The stem (Cin = 1: rows below cp.async's 16 bytes) stages its feats
 //     with plain loads into the same layout.
 //
-// * float32 (only the checking paths): subm_conv_dw_f32_kernel, CUDA cores,
+// * float32 (the checking paths and SPVCNN's float32 decoder):
+//   subm_conv_dw_f32_kernel, CUDA cores,
 //   so float32 stays within 1e-4 of the plain twin. Grid = (voxel ranges, 27
 //   offsets, ceil(Cin / 32)); a CTA owns a 32 x Cout (<= 192) block of
 //   d_w[k] in registers and walks its range in chunks of 32 voxels: it

@@ -20,7 +20,8 @@ from PIL import Image
 from mopa_tpu_torch.data.utils.augmentation_3d import augment_and_scale_3d
 from mopa_tpu_torch.data.utils.image_aug import \
     color_jitter as apply_color_jitter
-from mopa_tpu_torch.data.utils.inputs import check_scn_inputs
+from mopa_tpu_torch.data.utils import inputs
+from mopa_tpu_torch.data.utils.depth_label import dense_depth_label
 
 
 class A2D2Base:
@@ -91,8 +92,9 @@ class A2D2SCN(A2D2Base):
                  transl=False, fliplr=0.0, color_jitter=None, use_feats=False,
                  use_sparse_quantize=False, backbone="SCN",
                  with_depth_label=False, rng=None):
-        check_scn_inputs(backbone, with_depth_label, use_sparse_quantize)
         super().__init__(split, preprocess_dir, merge_classes=merge_classes)
+        self.backbone = backbone
+        self.with_depth_label = with_depth_label
         self.scale = scale
         self.full_scale = full_scale
         self.noisy_rot = noisy_rot
@@ -155,9 +157,18 @@ class A2D2SCN(A2D2Base):
         out_dict["coords"] = coords[idxs]
         out_dict["aug_points"] = aug_points[idxs]
         out_dict["feats"] = np.ones([int(idxs.sum()), 1], np.float32)
+        if inputs.is_spvcnn(self.backbone):
+            refl = np.asarray(data_dict.get(
+                "reflectance", np.ones(len(points))), np.float32)
+            out_dict["feats"] = inputs.spvcnn_feats(aug_points[idxs],
+                                                    refl[idxs])
         out_dict["seg_label"] = seg_label[idxs]
         out_dict["lidar_path"] = data_dict.get("lidar_path", "")
         out_dict["scan_pth"] = data_dict.get("lidar_path", "")
         if self.use_image:
             out_dict["img_indices"] = out_dict["img_indices"][idxs]
+            if self.with_depth_label:
+                out_dict["depth_label"] = dense_depth_label(
+                    out_dict["img"].shape[:2], out_dict["img_indices"],
+                    points[idxs])
         return out_dict

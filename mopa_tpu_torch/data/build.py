@@ -30,6 +30,7 @@ from mopa_tpu_torch.data.nuscenes.nuscenes_dataloader import NuScenesSCN
 from mopa_tpu_torch.data.semantic_kitti.semantic_kitti_dataloader import \
     SemanticKITTISCN
 from mopa_tpu_torch.data.synthetic import SyntheticSCN
+from mopa_tpu_torch.models.build import plan_levels
 
 PREFETCH = 2        # batches the producer collates ahead of its consumer
 AUDIT_BATCHES = 2   # batches of each pass that carry the capacity audit
@@ -190,13 +191,14 @@ def build_dataloader(cfg, mode="train", domain="source", start_iteration=0,
                    for i in range(n_batches)]
 
     budget = point_budget_for(cfg, dataset_cfg.TYPE)
-    # train batches: key-sorted points and host-built plans; host VGI on the
-    # target stream of a MoPA run
+    # train batches: key-sorted points and host-built plans of the voxel
+    # backbones (as many levels as the 3D net's plan; none for SalsaNext's
+    # range images); host VGI on the target stream of a MoPA run
     host_caps = vgi_host = None
-    if is_train:
+    levels = plan_levels(cfg)
+    if is_train and levels is not None:
         from mopa_tpu_torch.models.scn_unet import capacity_schedule
 
-        levels = int(cfg.MODEL_3D.SCN.num_planes)
         factors = tuple(cfg.TPU.get("CAP_FACTORS", ())) or None
         host_caps = capacity_schedule(budget, levels, factors=factors)
         if (domain == "target"

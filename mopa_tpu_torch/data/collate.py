@@ -78,7 +78,8 @@ def remap_mask_ids(mask: np.ndarray, budget: int) -> np.ndarray:
 # The per-point groups of a sample: the augmented points, the EMA teacher's
 # original points (``ema_map`` points into them) and the raw scan (VGI).
 _POINT_KEYS = ("coords", "feats", "seg_label", "img_indices",
-               "pseudo_label_2d", "pseudo_label_3d", "points_xyz", "ema_map")
+               "pseudo_label_2d", "pseudo_label_3d", "proj_xy", "points_xyz",
+               "ema_map")
 _ORI_KEYS = ("ori_coords", "ori_feats", "ori_img_indices")
 _RAW_KEYS = ("ori_points", "ori_pseudo_label_3d", "g_indices")
 
@@ -275,7 +276,8 @@ def collate_padded(samples: List[Dict], point_budget: int,
     Keys: ``img`` (B, H, W, 3), ``img_indices`` (B, P, 2), ``point_valid``
     (B, P), ``num_points`` (B,), ``coords`` (B*P, 3), ``batch_idx``,
     ``feats``, ``seg_label`` and the pseudo labels (B*P, ...), ``sam_mask``
-    (B, H, W); the EMA teacher's ``ori_img``, ``ori_img_indices``,
+    (B, H, W), ``depth_label`` (B, H, W, 1), SalsaNext's ``proj_in`` (B, H_r,
+    W_r, 5) and ``proj_xy`` (B, P, 2); the EMA teacher's ``ori_img``, ``ori_img_indices``,
     ``ori_coords``, ``ori_batch_idx``, ``ori_point_valid``,
     ``ori_num_points``, ``ori_feats`` and ``ema_map`` (B, P); the raw VGI
     inputs ``ori_points`` (B, P, 4), ``ori_points_valid``,
@@ -334,6 +336,13 @@ def collate_padded(samples: List[Dict], point_budget: int,
             lab, _ = stack_points(key, -100, idx_t)
             out[key] = lab.reshape(b * p)
 
+    if "proj_in" in samples[0]:
+        # SalsaNext's range images and each point's pixel
+        out["proj_in"] = np.stack(
+            [np.asarray(s["proj_in"], np.float32) for s in samples])
+        pxy, _ = stack_points("proj_xy", 0, np.int32)
+        out["proj_xy"] = pxy
+
     if "points_xyz" in samples[0]:
         # the points in meters, for the eval-time KNN
         pxyz, _ = stack_points("points_xyz", 0, np.float32)
@@ -344,6 +353,10 @@ def collate_padded(samples: List[Dict], point_budget: int,
         out["sam_mask"] = np.stack(
             [remap_mask_ids(np.asarray(s["sam_mask"]), mask_budget)
              for s in samples]).astype(mask_t)
+
+    if "depth_label" in samples[0]:
+        out["depth_label"] = np.stack(
+            [np.asarray(s["depth_label"], np.float32) for s in samples])
 
     if "ori_img" in samples[0]:
         out["ori_img"] = np.stack([_quantize_img(s["ori_img"])

@@ -24,7 +24,7 @@ from PIL import Image
 from mopa_tpu_torch.data.utils.augmentation_3d import augment_and_scale_3d
 from mopa_tpu_torch.data.utils.image_aug import \
     color_jitter as apply_color_jitter
-from mopa_tpu_torch.data.utils.inputs import check_scn_inputs
+from mopa_tpu_torch.data.utils.depth_label import dense_depth_label
 from mopa_tpu_torch.data.utils.refine_pseudo_labels import (
     refine_pseudo_labels_np, refine_sam_mask)
 
@@ -106,8 +106,9 @@ class NuScenesSCN(NuScenesBase):
                  z_disc=None, sc_rotation=None, sam_mask_dir=None,
                  ema_input=False, with_depth_label=False, backbone="SCN",
                  rng=None):
-        # ``backbone`` comes from build_dataloader, as for the other datasets
-        check_scn_inputs(backbone, with_depth_label, use_sparse_quantize)
+        # ``backbone`` comes from build_dataloader, as for the other
+        # datasets; the samples carry the SCN inputs whatever it names, as
+        # the JAX package's do
         super().__init__(split, preprocess_dir, label_mode,
                          merge_classes=merge_classes, pselab_paths=pselab_paths)
         self.nuscenes_dir = nuscenes_dir
@@ -130,6 +131,7 @@ class NuScenesSCN(NuScenesBase):
         self.g_indices_dir = g_indices_dir
         self.sam_mask_dir = sam_mask_dir
         self.ema_input = ema_input
+        self.with_depth_label = with_depth_label
         self.rng = rng or np.random.default_rng()
 
         if self.use_pc_mm:
@@ -264,6 +266,10 @@ class NuScenesSCN(NuScenesBase):
         out_dict["lidar_path"] = lidar_path
         out_dict["scan_pth"] = lidar_path
         out_dict["img_indices"] = out_dict["img_indices"][idxs]
+        if self.with_depth_label:
+            out_dict["depth_label"] = dense_depth_label(
+                out_dict["img"].shape[:2], out_dict["img_indices"],
+                points[idxs])
 
         if ps_data is not None:
             ps_label_2d = refine_pseudo_labels_np(

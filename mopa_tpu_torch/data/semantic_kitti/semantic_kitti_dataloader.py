@@ -24,7 +24,8 @@ from mopa_tpu_torch.data.semantic_kitti import splits
 from mopa_tpu_torch.data.utils.augmentation_3d import augment_and_scale_3d
 from mopa_tpu_torch.data.utils.image_aug import \
     color_jitter as apply_color_jitter
-from mopa_tpu_torch.data.utils.inputs import check_scn_inputs
+from mopa_tpu_torch.data.utils import inputs
+from mopa_tpu_torch.data.utils.depth_label import dense_depth_label
 from mopa_tpu_torch.data.utils.refine_pseudo_labels import (
     refine_pseudo_labels_np, refine_sam_2Dlabels, refine_sam_mask)
 
@@ -171,7 +172,6 @@ class SemanticKITTISCN(SemanticKITTIBase):
                  backbone="SCN", proj_W=1024, proj_H=64, fov_up=0.05235,
                  fov_down=-0.43633, rng=None, preprocess_dir="",
                  semantic_kitti_dir="", cat_type="", with_depth_label=False):
-        check_scn_inputs(backbone, with_depth_label, use_sparse_quantize)
         super().__init__(split, root_dir, merge_classes=merge_classes,
                          ps_label_dir=ps_label_dir, use_pc_mm=use_pc_mm,
                          obj_name_ls=obj_name_ls, obj_root_dir=obj_root_dir,
@@ -188,7 +188,11 @@ class SemanticKITTISCN(SemanticKITTIBase):
         self.fliplr = fliplr
         self.color_jitter = tuple(color_jitter) if color_jitter else None
         self.multi_objs = multi_objs
+        self.backbone = backbone
+        self.proj_W, self.proj_H = proj_W, proj_H
+        self.fov_up, self.fov_down = fov_up, fov_down
         self.ema_input = ema_input
+        self.with_depth_label = with_depth_label
         self.rng = rng or np.random.default_rng()
 
     # ----- loading -----
@@ -392,8 +396,18 @@ class SemanticKITTISCN(SemanticKITTIBase):
         out_dict["coords"] = coords[idxs]
         out_dict["aug_points"] = aug_points[idxs]
         out_dict["feats"] = np.ones([int(idxs.sum()), 1], np.float32)
+        if inputs.is_spvcnn(self.backbone):
+            out_dict["feats"] = inputs.spvcnn_feats(aug_points[idxs],
+                                                    feats[idxs])
+        elif self.backbone == "SalsaNext":
+            out_dict.update(inputs.range_inputs(
+                points[idxs], feats[idxs], self.fov_up, self.fov_down,
+                self.proj_W, self.proj_H))
         out_dict["seg_label"] = seg_label[idxs]
         out_dict["img_indices"] = out_dict["img_indices"][idxs]
+        if self.with_depth_label:
+            out_dict["depth_label"] = dense_depth_label(
+                image.shape[:2], out_dict["img_indices"], points[idxs])
         out_dict["lidar_path"] = data_dict["lidar_path"]
         out_dict["scan_pth"] = data_dict["scan_pth"]
 

@@ -24,7 +24,8 @@ import numpy as np
 
 from mopa_tpu_torch.data.collate import _lexkey
 from mopa_tpu_torch.data.utils.augmentation_3d import augment_and_scale_3d
-from mopa_tpu_torch.data.utils.inputs import check_scn_inputs
+from mopa_tpu_torch.data.utils import inputs
+from mopa_tpu_torch.data.utils.depth_label import dense_depth_label
 
 # Seed base of the reference's per-index raw scans (SyntheticSCN.__getitem__).
 SCAN_SEED = 20260817
@@ -263,9 +264,10 @@ def host_plan_settings(cfg, point_budget: int, seed: int = 0) -> dict:
     VGI settings of ``data.collate._host_vgi_batch`` with a generator seeded
     by ``seed`` (:data:`KITTI_TARGET_AUG`, scale 20, full scale 4096, x
     forward)."""
+    from mopa_tpu_torch.models.build import plan_levels
     from mopa_tpu_torch.models.scn_unet import capacity_schedule
 
-    levels = int(cfg.MODEL_3D.SCN.num_planes)
+    levels = plan_levels(cfg)
     factors = tuple(cfg.TPU.get("CAP_FACTORS", ())) or None
     out = {"capacities": capacity_schedule(int(point_budget), levels,
                                            factors=factors), "vgi": None}
@@ -382,7 +384,10 @@ class SyntheticSCN:
     camera). ``learnable`` paints class colours and gives each class its own
     slab thickness, so that a trained model can reach a high mIoU.
     ``output_orig`` (eval) adds the points in meters and the restore mask.
-    Only the SCN backbone's inputs are ported (:func:`check_scn_inputs`).
+    The 3D inputs follow ``backbone`` (:mod:`~mopa_tpu_torch.data.utils.
+    inputs`; a random intensity per point for SPVCNN and SalsaNext, whose
+    range image is ``proj_H`` x ``proj_W`` over ``fov_up`` / ``fov_down``),
+    and ``with_depth_label`` adds the dense ``depth_label`` (H, W, 1).
     """
 
     class_names = ["car", "truck", "bike", "person", "road",
@@ -398,7 +403,6 @@ class SyntheticSCN:
                  proj_H=32, fov_up=0.05235, fov_down=-0.43633, seed=0,
                  with_depth_label=False, learnable=False, rng=None,
                  **_unused):
-        check_scn_inputs(backbone, with_depth_label)
         self.length = length
         self.n_points = n_points
         self.image_size = tuple(image_size)  # (W, H)
@@ -420,6 +424,10 @@ class SyntheticSCN:
         self.learnable = learnable
         self.multi_objs = multi_objs
         self.n_objs = n_objs
+        self.backbone = backbone
+        self.proj_W, self.proj_H = proj_W, proj_H
+        self.fov_up, self.fov_down = fov_up, fov_down
+        self.with_depth_label = with_depth_label
         self.rng = rng or np.random.default_rng(seed)
         self._scan_cache = {}
 
@@ -536,6 +544,18 @@ class SyntheticSCN:
             "lidar_path": "synthetic/{:06d}.bin".format(index),
             "scan_pth": "synthetic/{:06d}.bin".format(index),
         })
+        if self.with_depth_label:
+            out["depth_label"] = dense_depth_label(
+                (h, w), img_indices[idxs], points[idxs])
+        n = int(idxs.sum())
+        if inputs.is_spvcnn(self.backbone):
+            out["feats"] = inputs.spvcnn_feats(
+                aug_points[idxs],
+                rng.uniform(0, 1, (n, 1)).astype(np.float32))
+        elif self.backbone == "SalsaNext":
+            out.update(inputs.range_inputs(
+                points[idxs], rng.uniform(0, 1, (n, 1)), self.fov_up,
+                self.fov_down, self.proj_W, self.proj_H))
 
         if self.with_pseudo_labels:
             ps = labels.copy()

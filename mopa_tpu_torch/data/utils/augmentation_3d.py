@@ -1,7 +1,8 @@
 """Host-side 3D augmentation and spherical range projection with occlusion
 removal, in numpy (the port of ``mopa_tpu/data/utils/augmentation_3d.py``:
 ``make_rotation`` and ``augment_and_scale_3d``, which the datasets call, and
-``occlusion_detector`` and ``range_projection``, which host-side VGI uses).
+``occlusion_detector`` and ``range_projection``, which host-side VGI uses,
+and ``build_range_input``, SalsaNext's range image).
 
 Randomness comes from the caller's ``np.random.Generator``; the same
 generator state gives the JAX package's values.
@@ -110,3 +111,27 @@ def range_projection(points: np.ndarray, fov_up: float, fov_down: float,
     dropped[contested] = occluded
     out["pres_idx"] = ~dropped
     return out
+
+
+def build_range_input(points: np.ndarray, fov_up: float, fov_down: float,
+                      proj_W: int, proj_H: int) -> tuple:
+    """SalsaNext's input: a scan (N, 3 or 4: xyz [+ intensity]) rasterised
+    into a (proj_H, proj_W, 5) range image (range, x, y, z, intensity; -1
+    where no point lands; the nearest point wins a pixel), each point's
+    (row, col) pixel (N, 2) int32 and its range (N,) float32.
+
+    Points are written farthest first by the same non-stable
+    ``np.argsort(-depth)`` as the JAX package's, so ties resolve alike and
+    the image is byte-equal."""
+    pr = range_projection(points, fov_up, fov_down, proj_W, proj_H)
+    px, py, depth = pr["proj_x"], pr["proj_y"], pr["depth"]
+    pix = py.astype(np.int64) * proj_W + px
+    intensity = (points[:, 3] if points.shape[1] > 3
+                 else np.zeros(len(points), np.float32))
+    vals = np.concatenate([depth[:, None], points[:, :3],
+                           intensity[:, None]], axis=1).astype(np.float32)
+    img = np.full((proj_H * proj_W, 5), -1.0, np.float32)
+    order = np.argsort(-depth)
+    img[pix[order]] = vals[order]
+    proj_xy = np.stack([py, px], axis=1).astype(np.int32)
+    return img.reshape(proj_H, proj_W, 5), proj_xy, depth.astype(np.float32)

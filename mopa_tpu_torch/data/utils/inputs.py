@@ -1,18 +1,41 @@
-"""The dataset inputs the port builds: the SCN backbone's (voxel
-coordinates and all-ones features). SPVCNN's sparse-quantized and
-SalsaNext's range-image inputs and the depth labels wait for ROADMAP M14."""
+"""The 3D inputs a dataset sample carries for each backbone (the JAX
+package's dataset branches, ``mopa_tpu/data/*/``):
+
+* SCN: an all-ones (N, 1) feature column beside the voxel coordinates;
+* SPVCNN (any type whose name starts with it): (N, 4) features, the
+  augmented xyz and the point's intensity / remission / reflectance;
+* SalsaNext: the (H, W, 5) range image ``proj_in`` and each point's pixel
+  ``proj_xy`` (``augmentation_3d.build_range_input``).
+
+``use_sparse_quantize`` is a constructor argument of the real-format
+datasets that, as in the JAX package, has no effect.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from mopa_tpu_torch.data.utils.augmentation_3d import build_range_input
 
 
-def check_scn_inputs(backbone: str = "SCN", with_depth_label: bool = False,
-                     use_sparse_quantize: bool = False) -> None:
-    """Raise ``NotImplementedError`` naming M14 for inputs not ported yet."""
-    what = []
-    if str(backbone).upper().startswith("SPVCNN") or backbone == "SalsaNext":
-        what.append("the {} inputs".format(backbone))
-    if use_sparse_quantize:
-        what.append("use_sparse_quantize")
-    if with_depth_label:
-        what.append("with_depth_label")
-    if what:
-        raise NotImplementedError("not ported yet (ROADMAP M14): {}".format(
-            ", ".join(what)))
+def is_spvcnn(backbone: str) -> bool:
+    return str(backbone).upper().startswith("SPVCNN")
+
+
+def spvcnn_feats(aug_points: np.ndarray,
+                 intensity: np.ndarray) -> np.ndarray:
+    """(N, 4) float32 SPVCNN features: augmented xyz, then intensity."""
+    return np.concatenate([aug_points.astype(np.float32),
+                           np.asarray(intensity).reshape(-1, 1)
+                           .astype(np.float32)], axis=1)
+
+
+def range_inputs(points: np.ndarray, intensity: np.ndarray, fov_up: float,
+                 fov_down: float, proj_W: int, proj_H: int) -> dict:
+    """SalsaNext's ``proj_in`` (H, W, 5) and ``proj_xy`` (N, 2) of sensor-
+    frame ``points`` (N, 3) with their ``intensity`` (N,)."""
+    pts4 = np.concatenate([points, np.asarray(intensity).reshape(-1, 1)],
+                          axis=1).astype(np.float32)
+    proj_in, proj_xy, _ = build_range_input(pts4, fov_up, fov_down, proj_W,
+                                            proj_H)
+    return {"proj_in": proj_in, "proj_xy": proj_xy}

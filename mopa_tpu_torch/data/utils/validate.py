@@ -1,5 +1,5 @@
 """The eval step and the validation / pseudo-label loop (PyTorch port of
-``mopa_tpu/data/utils/validate.py``, SCN branch; reference
+``mopa_tpu/data/utils/validate.py``; reference
 ``mopa/data/utils/validate.py:26-229``).
 
 :func:`make_eval_step` gives per-point 2D/3D probabilities on the card;
@@ -25,6 +25,7 @@ from torch.profiler import record_function
 from mopa_tpu_torch.data.pspath_sort import pspath_sort
 from mopa_tpu_torch.data.utils.evaluate import Evaluator
 from mopa_tpu_torch.models import losses as L
+from mopa_tpu_torch.models.build import plan_levels
 from mopa_tpu_torch.train import trainer as trainer_mod
 from mopa_tpu_torch.train.common import decode_batch, device_batch
 
@@ -41,10 +42,13 @@ def make_eval_step(cfg, models: trainer_mod.Models):
     The step decodes the batch onto the device, runs the 2D net, builds the
     voxel plan (sorting the points itself, so any point order is right), runs
     the 3D net, and returns per-point softmax probabilities (B*P, C) and the
-    masked CE losses against ``seg_label``. Each stage is one
-    ``record_function`` range named in :data:`STAGES`.
+    masked CE losses against ``seg_label``. SalsaNext builds no plan: it
+    reads the batch's range images (``proj_in``) and gathers its logits at
+    each point's pixel (``proj_xy``). Each stage is one ``record_function``
+    range named in :data:`STAGES`.
     """
     device = next(models.model_2d.parameters()).device
+    is_range = plan_levels(cfg) is None  # a range net: no voxel plan
 
     @torch.no_grad()
     def eval_step(batch: dict):
@@ -57,12 +61,18 @@ def make_eval_step(cfg, models: trainer_mod.Models):
         with record_function(net2d):
             out2d = models.model_2d(batch["img"], batch["img_indices"],
                                     batch["point_valid"])
-        with record_function(plan_range):
-            plan = trainer_mod.build_plan_from_batch(
-                cfg, batch["coords"], valid,
-                sample_size=batch["point_valid"].shape[1])
-        with record_function(net3d):
-            out3d = models.model_3d(batch["feats"], plan)
+        if is_range:
+            with record_function(net3d):
+                out3d = models.model_3d(batch["feats"], None,
+                                        proj_in=batch["proj_in"],
+                                        proj_xy=batch["proj_xy"])
+        else:
+            with record_function(plan_range):
+                plan = trainer_mod.build_plan_from_batch(
+                    cfg, batch["coords"], valid,
+                    sample_size=batch["point_valid"].shape[1])
+            with record_function(net3d):
+                out3d = models.model_3d(batch["feats"], plan)
         with record_function(heads):
             probs_2d = torch.softmax(out2d["seg_logit"], dim=-1)
             probs_3d = torch.softmax(out3d["seg_logit"], dim=-1)

@@ -5,7 +5,9 @@ Reference backbone ``mopa/models/resnet34_unet.py:83-191``: torchvision-style
 ResNet34 encoder with conv1 stride 1, maxpool + 4 stages, decoder of
 ConvTranspose(k2, s2)+BN+ReLU stages with skip concatenation and 3x3 conv
 fusions, final 3x3 conv to 64 channels; the input is padded to a multiple of
-16 and cropped back. Dropout (p=0.4 after layer3 and layer4) acts in training
+16 and cropped back. With ``depth_pred`` the depth head
+(:class:`InitialTaskPredictionModule`, reference ``resnet34_unet.py:52-80``)
+reads the cropped features. Dropout (p=0.4 after layer3 and layer4) acts in training
 only, drawing its mask from the caller's generator. ``n_domains`` > 1 fuses
 that many forwards stacked on the batch axis, with per-domain batch-norm
 statistics. The public layout is NHWC like the reference; convolutions run
@@ -29,7 +31,7 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding)
+                        self.padding, self.dilation)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -177,12 +179,63 @@ class TConvStage(nn.Module):
         return torch.relu(self.bn(self.tconv(x), nd))
 
 
+class BottleneckPad(nn.Module):
+    """Bottleneck residual block: 1x1 -> 3x3 -> 1x1 x4, each conv without
+    bias and followed by batch norm, and a 1x1 conv + BN on the skip with
+    ``downsample`` (the depth head's; the JAX package's stride and dilation
+    are always 1 there)."""
+
+    def __init__(self, inplanes: int, planes: int, downsample: bool = False):
+        super().__init__()
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = DomainBatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = DomainBatchNorm(planes)
+        self.conv3 = Conv2d(planes, 4 * planes, 1, bias=False)
+        self.bn3 = DomainBatchNorm(4 * planes)
+        if downsample:
+            self.downsample_conv = Conv2d(inplanes, 4 * planes, 1, bias=False)
+            self.downsample_bn = DomainBatchNorm(4 * planes)
+        self.downsample = downsample
+
+    def forward(self, x: torch.Tensor, nd: int) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x), nd))
+        y = torch.relu(self.bn2(self.conv2(y), nd))
+        y = self.bn3(self.conv3(y), nd)
+        residual = x
+        if self.downsample:
+            residual = self.downsample_bn(self.downsample_conv(x), nd)
+        return torch.relu(y + residual)
+
+
+class InitialTaskPredictionModule(nn.Module):
+    """The depth head: two :class:`BottleneckPad` blocks to
+    ``intermediate_channels`` (the first with a downsampled skip where the
+    width changes), then a 1x1 conv with bias to one channel in float32
+    (flax's ``conv_out`` has no dtype)."""
+
+    def __init__(self, in_channels: int = 64,
+                 intermediate_channels: int = 256):
+        super().__init__()
+        inter = intermediate_channels
+        self.bottleneck1 = BottleneckPad(in_channels, inter // 4,
+                                         downsample=in_channels != inter)
+        self.bottleneck2 = BottleneckPad(inter, inter // 4)
+        self.conv_out = Conv2d(inter, 1, 1)
+
+    def forward(self, x: torch.Tensor, nd: int) -> torch.Tensor:
+        """(B, C, H, W) -> (B, 1, H, W) float32."""
+        x = self.bottleneck2(self.bottleneck1(x, nd), nd)
+        return self.conv_out(x.float())
+
+
 class UNetResNet34(nn.Module):
-    """Full-resolution 64-channel feature UNet; (B, H, W, 3) -> (B, H, W, 64)."""
+    """Full-resolution 64-channel feature UNet; (B, H, W, 3) -> (B, H, W, 64)
+    and, with ``depth_pred``, the depth head's (B, H, W, 1) float32 map."""
 
     def __init__(self, compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None,
-                 dropout_rate: float = 0.4):
+                 dropout_rate: float = 0.4, depth_pred: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.dropout_rate = dropout_rate
@@ -200,11 +253,14 @@ class UNetResNet34(nn.Module):
         self.dec_conv_stage2 = DecStage(128, 64)
         self.dec_t_conv_stage2 = TConvStage(64, 64)
         self.dec_conv_stage1 = Conv2d(128, 64, 3, 1, 1)
+        self.depth_head = InitialTaskPredictionModule() if depth_pred \
+            else None
         init_weights(self, generator)
 
     def forward(self, img: torch.Tensor, n_domains: int = 1,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """(B, H, W, 3) -> (B, H, W, 64) in the compute dtype. In training,
+                generator: torch.Generator | None = None):
+        """(B, H, W, 3) -> (B, H, W, 64) in the compute dtype, with the depth
+        head a pair (features, (B, H, W, 1) depth). In training,
         ``generator`` draws the dropout masks."""
         nd = n_domains
         p = self.dropout_rate if self.training else 0.0
@@ -230,4 +286,8 @@ class UNetResNet34(nn.Module):
         x = self.dec_conv_stage2(torch.cat([inter[1], x], dim=1), nd)
         x = self.dec_t_conv_stage2(x, nd)
         x = self.dec_conv_stage1(torch.cat([inter[0], x], dim=1))
-        return x[:, :, :h, :w].permute(0, 2, 3, 1)
+        x = x[:, :, :h, :w]
+        if self.depth_head is None:
+            return x.permute(0, 2, 3, 1)
+        return (x.permute(0, 2, 3, 1),
+                self.depth_head(x, nd).permute(0, 2, 3, 1))

@@ -10,7 +10,9 @@ modules carry the flax names, so the only renaming is ``.kernel`` ->
 * ConvTranspose ``(H, W, I, O)`` -> ``(I, O, H, W)``, spatially flipped (flax
   applies the kernel without the flip torch uses);
 * Dense ``(I, O)`` -> ``(O, I)``;
-* SCN conv ``(K, Cin, Cout)`` and batch-norm ``scale/bias/mean/var`` unchanged;
+* SCN conv ``(K, Cin, Cout)`` (SPVCNN's ``stem*``, ``down*``, ``up*``,
+  ``conv1``/``conv2``/``down`` too) and batch-norm ``scale/bias/mean/var``
+  (SalsaNext's flax ``nn.BatchNorm`` and the depth head's too) unchanged;
 * layer norm: the port's ``LayerNorm`` (``models/sam.py``) keeps flax's
   ``scale`` / ``bias`` names, so they cross unchanged;
 * raw parameters (SAM's channels-last ``pos_embed``, ``rel_pos_h/w``,

@@ -15,13 +15,21 @@ Each has two routes, chosen by the dtype (:func:`route_for`):
   core GEMMs, the gather of the next stages in flight while the current one
   multiplies. K1 and ``d_feats`` read the forward weight in place
   (``d_feats`` as W'[k] = W[26-k]^T, through ``ldmatrix``'s transpose);
-* ``cuda`` for float32, which only the checking paths use: CUDA-core FMA
-  loops, so float32 stays within 1e-4 of the plain twins (TF32 would not).
+* ``cuda`` for float32, which the checking paths use and SPVCNN's decoder
+  (float32 under a bfloat16 compute dtype, as in the JAX package): CUDA-core
+  FMA loops, so float32 stays within 1e-4 of the plain twins (TF32 would
+  not).
 
 The sources are ``mopa_tpu_torch/csrc/submanifold_conv.cu`` (K1, K2
 ``d_feats``) and ``csrc/submanifold_conv_dw.cu`` (K2 ``d_w``), with the
 tensor-core building blocks in ``csrc/tensor_core.cuh``; their headers say
 what bounds each kernel on the card and how the design answers it.
+
+Output widths above :data:`COUT_MAX` (SPVCNN's 256 and 384) run as column
+blocks (:func:`column_blocks`): near-equal blocks of at most 192 columns,
+each one launch of the same kernel on a packed slice of the weight (and, for
+``d_w``, of the cotangent), stitched by one ``torch.cat``. A width of at most
+192 is one launch.
 
 Every CUDA source of the port (these two and ``csrc/gather_micro.cu``, the
 gather probes of ``ops/gather.py``) is compiled for ``sm_90a`` by ``nvcc`` at
@@ -51,7 +59,9 @@ HEADERS = (_PKG / "csrc" / "tensor_core.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-COUT_MAX = 192  # the widest output width either route holds (csrc kCoutMax)
+# The widest output block one launch holds (csrc kCoutMax); wider outputs
+# run as several blocks (column_blocks).
+COUT_MAX = 192
 
 K1 = "K1 submanifold_conv_fwd"
 K2_DFEATS = "K2 submanifold_conv_bwd_dfeats"
@@ -200,6 +210,16 @@ def tile_columns(ranks: torch.Tensor, sel: torch.Tensor,
     return has.reshape(n, TILE_M, 9).any(dim=1)
 
 
+def column_blocks(width: int) -> list[tuple[int, int]]:
+    """[start, stop) of the output columns each launch computes for an output
+    width: one block up to :data:`COUT_MAX`, else ceil(width / COUT_MAX)
+    near-equal blocks, each but the last a multiple of 16 wide (256 -> 2 x
+    128, 384 -> 2 x 192)."""
+    n = _cdiv(width, COUT_MAX)
+    step = width if n == 1 else min(COUT_MAX, _cdiv(_cdiv(width, n), 16) * 16)
+    return [(c, min(c + step, width)) for c in range(0, width, step)]
+
+
 def dw_ranges(v: int) -> tuple[int, int]:
     """(ranges, rows per range) that ``d_w`` splits V voxel rows into: about
     :data:`ROWS_PER_RANGE` rows each, at most :data:`MAX_RANGES`, rows a
@@ -274,26 +294,40 @@ def _launch(kernel: str, route: str, fn, device, *args) -> None:
     routes[kernel][route] += 1
 
 
+def _conv_block(kernel: str, rows: torch.Tensor, ranks: torch.Tensor,
+                sel: torch.Tensor, weight: torch.Tensor, out: torch.Tensor,
+                mirror: bool) -> None:
+    """One launch of the conv kernel writing all of ``out`` (V, width)."""
+    v, cin = rows.shape
+    width = out.shape[1]
+    route = route_for(rows.dtype)
+    lib = build()["conv"]
+    if route == TENSOR_CORE:
+        _launch(kernel, route, lib.mopa_subm_conv_tc, rows.device, rows,
+                ranks, sel, weight, out, v, cin, width, int(mirror),
+                *conv_tile_shape(cin, width))
+    else:
+        _launch(kernel, route, lib.mopa_subm_conv_f32, rows.device, rows,
+                ranks, sel, weight, out, v, cin, width, int(mirror))
+
+
 def _conv(kernel: str, rows: torch.Tensor, ranks: torch.Tensor,
           sel: torch.Tensor, weight: torch.Tensor, out_width: int,
           mirror: bool) -> torch.Tensor:
     """K1 (mirror False, weight (27, Cin, Cout)) or K2 ``d_feats`` (mirror
     True, the forward weight (27, Cout_in, Cin_in) read as W') on ``rows``
-    (V, Cin) -> (V, out_width)."""
-    v, cin = rows.shape
-    out = torch.empty((v, out_width), dtype=rows.dtype, device=rows.device)
-    if v == 0:
-        return out
-    route = route_for(rows.dtype)
-    lib = build()["conv"]
-    if route == TENSOR_CORE:
-        _launch(kernel, route, lib.mopa_subm_conv_tc, rows.device, rows,
-                ranks, sel, weight, out, v, cin, out_width, int(mirror),
-                *conv_tile_shape(cin, out_width))
-    else:
-        _launch(kernel, route, lib.mopa_subm_conv_f32, rows.device, rows,
-                ranks, sel, weight, out, v, cin, out_width, int(mirror))
-    return out
+    (V, Cin) -> (V, out_width): one launch per :func:`column_blocks` block
+    on the block's columns of the weight (the weight itself when there is
+    one block: a full-width slice is contiguous, so nothing is copied)."""
+    v = rows.shape[0]
+    outs = []
+    for c0, c1 in column_blocks(out_width):
+        w = weight[:, c0:c1] if mirror else weight[:, :, c0:c1]
+        out = torch.empty((v, c1 - c0), dtype=rows.dtype, device=rows.device)
+        if v:
+            _conv_block(kernel, rows, ranks, sel, w.contiguous(), out, mirror)
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def submanifold_conv_wide_cuda(feats: torch.Tensor, ranks: torch.Tensor,
@@ -302,19 +336,18 @@ def submanifold_conv_wide_cuda(feats: torch.Tensor, ranks: torch.Tensor,
     """K1 over a flat wide-column plan (see ``sparse_conv.WidePlan``).
 
     feats (V, Cin) float32 or bfloat16, contiguous, on a CUDA device;
-    ranks/sel (V*9,) int32 on the same device; weight (27, Cin, Cout) with
-    Cout <= 192, contiguous, in the feature dtype on the same device (the
-    conv's autograd Function casts the float32 parameter before it calls
-    this). Returns (V, Cout) in the feature dtype, accumulated in float32."""
+    ranks/sel (V*9,) int32 on the same device; weight (27, Cin, Cout), any
+    Cout >= 1 (:func:`column_blocks`), contiguous, in the feature dtype on
+    the same device (the conv's autograd Function casts the float32
+    parameter before it calls this). Returns (V, Cout) in the feature dtype, accumulated in float32."""
     _check_rows(feats, "K1")
     v, cin = feats.shape
     if weight.dim() != 3 or weight.shape[0] != 27 or weight.shape[1] != cin:
         raise ValueError("weight must be (27, {}, Cout), got {}".format(
             cin, tuple(weight.shape)))
     cout = weight.shape[2]
-    if not 1 <= cout <= COUT_MAX:
-        raise ValueError("K1 supports 1 <= Cout <= {}, got {}".format(
-            COUT_MAX, cout))
+    if cout < 1:
+        raise ValueError("K1 needs Cout >= 1, got {}".format(cout))
     _check_weight(weight, cin, cout, feats)
     _check_plan(ranks, sel, v, feats.device)
     return _conv(K1, feats, ranks, sel, weight, cout, mirror=False)
@@ -327,7 +360,7 @@ def submanifold_conv_wide_bwd_dfeats_cuda(g: torch.Tensor,
                                           ) -> torch.Tensor:
     """K2's ``d_feats``: the windowed conv of the cotangent ``g`` (V, Cout)
     with ``weight[::-1].transpose(1, 2)``, from the FORWARD weight (27, Cin,
-    Cout) (Cin <= 192), in the cotangent's dtype. Returns (V, Cin) in that
+    Cout) (any Cin >= 1, :func:`column_blocks`), in the cotangent's dtype. Returns (V, Cin) in that
     dtype, accumulated in float32."""
     _check_rows(g, "K2 d_feats")
     v, cout = g.shape
@@ -335,9 +368,8 @@ def submanifold_conv_wide_bwd_dfeats_cuda(g: torch.Tensor,
         raise ValueError("weight must be (27, Cin, {}), got {}".format(
             cout, tuple(weight.shape)))
     cin = weight.shape[1]
-    if not 1 <= cin <= COUT_MAX:
-        raise ValueError("K2 d_feats supports 1 <= Cin <= {}, got {}".format(
-            COUT_MAX, cin))
+    if cin < 1:
+        raise ValueError("K2 d_feats needs Cin >= 1, got {}".format(cin))
     _check_weight(weight, cin, cout, g)
     _check_plan(ranks, sel, v, g.device)
     return _conv(K2_DFEATS, g, ranks, sel, weight, cin, mirror=True)
@@ -348,21 +380,30 @@ def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
                                       sel: torch.Tensor) -> torch.Tensor:
     """K2's ``d_w`` (27, Cin, Cout) float32 from the cotangent ``g`` (V, Cout)
     and the forward input ``feats`` (V, Cin), both in one dtype (float32 or
-    bfloat16) on a CUDA device, Cout <= 192. Reduced without atomics over
+    bfloat16) on a CUDA device, any Cout >= 1. Reduced without atomics over
     the voxel ranges of :func:`dw_ranges`: the same inputs give the same
-    bits."""
+    bits. One launch per :func:`column_blocks` block of Cout, on the block's
+    cotangent columns (``g`` itself when there is one block)."""
     _check_rows(g, "K2 d_w")
     _check_rows(feats, "K2 d_w")
     v, cout = g.shape
-    cin = feats.shape[1]
     if feats.shape[0] != v or feats.dtype != g.dtype \
             or feats.device != g.device:
         raise ValueError("feats must be ({}, Cin) {} on {}".format(
             v, g.dtype, g.device))
-    if not 1 <= cout <= COUT_MAX:
-        raise ValueError("K2 d_w supports 1 <= Cout <= {}, got {}".format(
-            COUT_MAX, cout))
+    if cout < 1:
+        raise ValueError("K2 d_w needs Cout >= 1, got {}".format(cout))
     _check_plan(ranks, sel, v, g.device)
+    outs = [_dw_block(g[:, c0:c1].contiguous(), feats, ranks, sel)
+            for c0, c1 in column_blocks(cout)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _dw_block(g: torch.Tensor, feats: torch.Tensor, ranks: torch.Tensor,
+              sel: torch.Tensor) -> torch.Tensor:
+    """One launch of the ``d_w`` kernel: (27, Cin, g's width) float32."""
+    v, cout = g.shape
+    cin = feats.shape[1]
     ranges, rows = dw_ranges(v)
     # per-range column blocks (ranges, 9, Cin, 3*Cout), both routes
     partial = torch.empty((ranges, 9, cin, 3 * cout), dtype=torch.float32,

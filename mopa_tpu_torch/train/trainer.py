@@ -18,9 +18,17 @@ target batch carries its ``hp_cat_*`` plan, else from device VGI
 (``ops.mixmatch``, stage ``train/vgi``) over the batch's raw VGI inputs,
 with its plan built on the card. Voxel plans come from the batch's
 host-built ``hp_*`` / ``hp_ori_*`` / ``hp_cat_*`` keys where it has them,
-else from the device build. The other 3D backbones, the depth head and
-multi-card data parallelism are not ported and raise
-``NotImplementedError`` naming their ROADMAP item.
+else from the device build.
+
+The 3D net is ``MODEL_3D.TYPE``'s: SCN, SPVCNN (a 5-level plan, 4-channel
+point features) or SalsaNext (range images, no plan: its source and target
+forwards run back to back, one batch norm updating its running statistics
+in turn). With ``TRAIN.DEPTH_PRED`` the 2D net's depth head is trained by
+the RMSE against the source's ``depth_label`` (weight
+``TRAIN.DEPTH_PRED_COE.lambda_dp_src``). Multi-card data parallelism is not
+ported and raises ``NotImplementedError`` naming its ROADMAP item; the
+combinations the JAX package cannot run either raise as noted in
+:func:`make_train_step`.
 
 With ``MODEL_2D.<TYPE>.pretrained`` (the default) :func:`create_train_state`
 loads the ImageNet ResNet34 encoder from the file
@@ -46,7 +54,8 @@ from mopa_tpu_torch.data.utils.refine_pseudo_labels import \
     refine_pseudo_labels
 from mopa_tpu_torch.models import losses as L
 from mopa_tpu_torch.models import weights
-from mopa_tpu_torch.models.build import build_model_2d, build_model_3d
+from mopa_tpu_torch.models.build import (build_model_2d, build_model_3d,
+                                         plan_levels)
 from mopa_tpu_torch.models.metric import confusion_matrix
 from mopa_tpu_torch.models.scn_unet import (HOST_PLAN_KEYS, UNetPlan,
                                             build_unet_plan_batched,
@@ -71,9 +80,11 @@ def _not_ported(item: str, what: str) -> NotImplementedError:
 
 
 def _num_levels(cfg) -> int:
-    if cfg.MODEL_3D.TYPE != "SCN":
-        raise _not_ported("M14", "3D backbone {}".format(cfg.MODEL_3D.TYPE))
-    return int(cfg.MODEL_3D.SCN.num_planes)
+    levels = plan_levels(cfg)
+    if levels is None:
+        raise ValueError("{} runs on range images and builds no voxel plan"
+                         .format(cfg.MODEL_3D.TYPE))
+    return levels
 
 
 def _host_plan(batch: dict, prefix: str, capacities, num_levels: int,
@@ -346,20 +357,37 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     place and returns it with ``step`` + 1;
     ``metrics`` maps names to device tensors (losses, ``total_loss``, the
     int64 confusion matrices ``cm_src_2d``/``cm_src_3d``, and with VGI
-    ``pc_mm_acc`` and ``vgi_inserted``). Each stage is one ``record_function``
+    ``pc_mm_acc`` and ``vgi_inserted``, with ``TRAIN.DEPTH_PRED``
+    ``depth_pred_loss``). Each stage is one ``record_function``
     range named in :data:`TRAIN_STAGES` (and :data:`TEACHER_STAGES`). With
     ``with_ema`` the returned step exposes its halves as ``.teacher_step(state,
-    batch_trg) -> (pl_2d, pl_3d)`` (int16) and ``.student_step``."""
+    batch_trg) -> (pl_2d, pl_3d)`` (int16) and ``.student_step``.
+
+    Raises, where the JAX package cannot run the combination either:
+    SalsaNext with VGI or the EMA teacher (``ValueError``; JAX asserts), and
+    SPVCNN with either (``NotImplementedError`` naming ROADMAP Queue 3: the
+    cat scans and the teacher's view carry one feature channel)."""
     lam = cfg.TRAIN.XMUDA
     pc_mm = cfg.TRAIN.PC_MM
     if with_ema and not with_pl:
         raise ValueError("EMA teacher implies pseudo-label CE (with_pl)")
     if mesh is not None:
         raise _not_ported("M13", "data parallelism over a mesh")
-    if bool(cfg.TRAIN.get("DEPTH_PRED", False)):
-        raise _not_ported("M14", "the depth head (TRAIN.DEPTH_PRED)")
-    _num_levels(cfg)  # an unported 3D backbone raises here
     with_vgi = with_mopa and float(pc_mm.lambda_pc_mm) > 0
+    is_range = plan_levels(cfg) is None  # a range net: no voxel plan
+    if is_range and (with_vgi or with_ema):
+        raise ValueError("VGI and the EMA teacher are paths of the voxel "
+                         "backbones; the JAX package asserts the same for "
+                         "{}".format(cfg.MODEL_3D.TYPE))
+    if "SPVCNN" in cfg.MODEL_3D.TYPE and (with_vgi or with_ema):
+        raise NotImplementedError(
+            "{} with {}: the VGI cat scans and the teacher's view carry one "
+            "all-ones feature channel against SPVCNN's {}; the JAX package "
+            "fails there too (ROADMAP Queue 3)".format(
+                cfg.MODEL_3D.TYPE, "VGI" if with_vgi else "the EMA teacher",
+                cfg.MODEL_3D.SPVCNN.in_channels))
+    with_depth = bool(cfg.TRAIN.get("DEPTH_PRED", False))
+    lambda_dp_src = float(cfg.TRAIN.DEPTH_PRED_COE.lambda_dp_src)
     dual_head = bool(cfg.MODEL_2D.DUAL_HEAD)
     num_classes = int(cfg.MODEL_2D.NUM_CLASSES)
     with_xm_src = lam.lambda_xm_src > 0
@@ -384,10 +412,9 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     def losses(out2d, out3d, batch_src, batch_trg, cat, b, p):
         metrics = {}
         npnt = b * p
-        src_2d = {k: v[:npnt] for k, v in out2d.items()
-                  if k != "seg_logit_all"}
-        trg_2d = {k: v[npnt:] for k, v in out2d.items()
-                  if k != "seg_logit_all"}
+        per_point = ("feats", "seg_logit", "seg_logit2")
+        src_2d = {k: out2d[k][:npnt] for k in per_point if k in out2d}
+        trg_2d = {k: out2d[k][npnt:] for k in per_point if k in out2d}
         src_3d = {k: v[:npnt] for k, v in out3d.items()}
         trg_3d = {k: v[npnt:2 * npnt] for k, v in out3d.items()}
 
@@ -410,6 +437,12 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
             metrics["xm_loss_src_2d"] = xm_2d
             metrics["xm_loss_src_3d"] = xm_3d
             total = total + lam.lambda_xm_src * (xm_2d + xm_3d)
+
+        if with_depth:
+            diff = out2d["depth_pred"][:b].float() - batch_src["depth_label"]
+            depth_loss = diff.square().mean().sqrt()
+            metrics["depth_pred_loss"] = depth_loss
+            total = total + lambda_dp_src * depth_loss
 
         with torch.no_grad():
             metrics["cm_src_2d"] = confusion_matrix(
@@ -482,9 +515,11 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         if with_vgi and "hp_cat_rankn" not in batch_trg:
             with record_function(vgi_r):
                 device_cat = device_vgi(cfg, batch_trg, with_pl, state.rng)
-        with record_function(plan_r):
-            plan, cat = build_train_plan(cfg, batch_src, batch_trg, with_vgi,
-                                         device_cat)
+        plan = cat = None
+        if not is_range:
+            with record_function(plan_r):
+                plan, cat = build_train_plan(cfg, batch_src, batch_trg,
+                                             with_vgi, device_cat)
         state.opt_2d.zero_grad()
         state.opt_3d.zero_grad()
         with record_function(net2d):
@@ -496,11 +531,20 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
                            batch_trg["point_valid"]]),
                 n_domains=2, generator=state.rng)
         with record_function(net3d):
-            feats = [batch_src["feats"], batch_trg["feats"]]
-            if cat is not None:
-                feats.append(cat["feats"])
-            out3d = model_3d(torch.cat(feats), plan,
-                             n_domains=2 if cat is None else 3)
+            if is_range:
+                # back to back, each forward updating the running stats
+                outs = [model_3d(bt["feats"], None, proj_in=bt["proj_in"],
+                                 proj_xy=bt["proj_xy"], generator=state.rng)
+                        for bt in (batch_src, batch_trg)]
+                out3d = {k: torch.cat([o[k] for o in outs])
+                         for k in outs[0] if k != "seg_logit_all"}
+            else:
+                feats = [batch_src["feats"], batch_trg["feats"]]
+                if cat is not None:
+                    feats.append(cat["feats"])
+                out3d = model_3d(torch.cat(feats), plan,
+                                 n_domains=2 if cat is None else 3,
+                                 generator=state.rng)
         with record_function(loss_r):
             total, metrics = losses(out2d, out3d, batch_src, batch_trg, cat,
                                     b, p)

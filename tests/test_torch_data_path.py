@@ -216,11 +216,29 @@ def test_synthetic_getitem_matches_jax(flavour):
                                                                    index))
 
 
-def test_synthetic_unported_inputs_raise():
-    for kw in ({"backbone": "SPVCNN"}, {"backbone": "SalsaNext"},
-               {"with_depth_label": True}):
-        with pytest.raises(NotImplementedError, match="M14"):
-            synthetic.SyntheticSCN(**kw)
+@pytest.mark.parametrize("kw", [{"backbone": "SPVCNN"},
+                                {"backbone": "SalsaNext"},
+                                {"with_depth_label": True}],
+                         ids=["spvcnn", "salsanext", "depth"])
+def test_synthetic_unported_inputs_raise(kw):
+    """The inputs of the other backbones and the depth labels (ported since
+    they raised here): SPVCNN's xyz + intensity features, SalsaNext's range
+    image and pixels (32 x 256), the dense depth label; samples and their
+    key-sorted collate byte-equal to JAX's."""
+    kw = dict(kw, length=4, n_points=2048, image_size=(128, 96))
+    got_ds = synthetic.SyntheticSCN(**kw)
+    want_ds = jax_synthetic.SyntheticSCN(**kw)
+    got = [got_ds[i] for i in range(2)]
+    want = [want_ds[i] for i in range(2)]
+    for i in range(2):
+        assert_same(got[i], want[i], "{}[{}]".format(kw, i))
+    key = {"SPVCNN": "feats", "SalsaNext": "proj_in"}.get(
+        kw.get("backbone"), "depth_label")
+    assert np.asarray(got[0][key]).shape[-1] == {
+        "feats": 4, "proj_in": 5, "depth_label": 1}[key]
+    assert_same(collate.collate_padded(got, 1024, sort_points=True),
+                jax_collate.collate_padded(want, 1024, sort_points=True),
+                "collate")
 
 
 # ----- collate_padded ---------------------------------------------------------

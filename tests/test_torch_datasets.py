@@ -243,9 +243,37 @@ def test_dataset_samples_and_collate_match_jax(tmp_path, case):
     (a2d2_dataloader.A2D2SCN, {"backbone": "SPVCNN"}),
     (nuscenes_dataloader.NuScenesSCN, {"with_depth_label": True})])
 def test_unported_dataset_inputs_raise(tmp_path, cls, kw):
-    """SPVCNN's and SalsaNext's inputs and the depth labels wait for M14:
-    asking for them raises before any file is read (``tmp_path`` is
-    empty)."""
-    root = "root_dir" if "KITTI" in cls.__name__ else "preprocess_dir"
-    with pytest.raises(NotImplementedError, match="M14"):
-        cls(split=("train",), **{root: str(tmp_path)}, **kw)
+    """The inputs that raised here before they were ported: KITTI with
+    ``use_sparse_quantize`` (no effect, as in JAX) and SalsaNext's range
+    images, A2D2 with SPVCNN's xyz + reflectance features, nuScenes with
+    depth labels; samples and collate byte-equal to JAX's."""
+    if cls is semantic_kitti_dataloader.SemanticKITTISCN:
+        case = "kitti_eval" if "use_sparse_quantize" in kw \
+            else "kitti_target"
+    elif cls is a2d2_dataloader.A2D2SCN:
+        case = "a2d2_source"
+    else:
+        case = "nuscenes_source"
+    write, make = CASES[case]
+    root = write(str(tmp_path))
+    port_cls, jax_cls, base_kw = make(root, case)
+    assert port_cls is cls
+    if case == "kitti_target":
+        base_kw = dict(base_kw, use_pc_mm=False, ema_input=False)
+    base_kw.update(kw)
+    got_ds = port_cls(rng=np.random.default_rng(22), **base_kw)
+    want_ds = jax_cls(rng=np.random.default_rng(22), **base_kw)
+    got = [got_ds[i] for i in range(min(len(got_ds), 2))]
+    want = [want_ds[i] for i in range(len(got))]
+    for i in range(len(got)):
+        assert_same(got[i], want[i], "{}[{}]".format(kw, i))
+    if kw.get("backbone") == "SalsaNext":
+        assert got[0]["proj_in"].shape == (64, 1024, 5)
+    if kw.get("backbone") == "SPVCNN":
+        assert got[0]["feats"].shape[1] == 4
+    if kw.get("with_depth_label"):
+        assert got[0]["depth_label"].shape[2] == 1
+    train = case != "kitti_eval"
+    assert_same(collate.collate_padded(got, 256, sort_points=train),
+                jax_collate.collate_padded(want, 256, sort_points=train),
+                "{} collate".format(kw))

@@ -23,9 +23,9 @@ on the other side of the kink moves the gradient of every encoder tensor by
   second to 1e-4.
 * (c) The port sorts points itself: the step on shuffled scans gives the
   losses of the step on sorted scans.
-* Each path the port does not have yet raises ``NotImplementedError``
-  naming its ROADMAP item: another 3D backbone and the depth head (M14), a
-  device mesh (M13).
+* A device mesh (M13), which the port does not have yet, raises
+  ``NotImplementedError`` naming its ROADMAP item; the other 3D backbones
+  and the depth head carry the JAX package's flax variables.
 """
 
 import flax.linen
@@ -307,17 +307,38 @@ def test_step_on_shuffled_points():
 @pytest.mark.parametrize("case,item", [("backbone", "M14"), ("mesh", "M13"),
                                        ("depth", "M14")])
 def test_unported_paths_raise(case, item):
-    kw = {}
-    if case == "backbone":
-        kw["MODEL_3D.TYPE"] = "SPVCNN"
-    if case == "depth":
-        kw["TRAIN.DEPTH_PRED"] = True
-    pcfg = _cfg(port_base_cfg, **kw)
-    build_cfg = _cfg(port_base_cfg)
-    models = port_trainer.build_models(build_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-        step = port_trainer.make_train_step(
-            pcfg, models, with_pl=True,
-            mesh=object() if case == "mesh" else None)
-        state = port_trainer.create_train_state(build_cfg, models)
-        step(state, _batch(1, False), _batch(2, True))
+    """A device mesh (M13) still raises. The other 3D backbones and the
+    depth head (M14, which raised here before they were ported) now build:
+    the port's nets carry exactly the flax variables, names and shapes, of
+    the JAX package's nets from the same config (``jax.eval_shape`` of its
+    init), and their step builds. Their numbers are held by
+    ``test_torch_backbone_step.py``."""
+    if case == "mesh":
+        pcfg = _cfg(port_base_cfg)
+        models = port_trainer.build_models(pcfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP " + item):
+            port_trainer.make_train_step(pcfg, models, with_pl=True,
+                                         mesh=object())
+        return
+    variants = ([{"MODEL_3D.TYPE": "SPVCNN"}, {"MODEL_3D.TYPE": "SalsaNext"}]
+                if case == "backbone" else [{"TRAIN.DEPTH_PRED": True}])
+    for kw in variants:
+        jcfg, pcfg = _cfg(jax_base_cfg, **kw), _cfg(port_base_cfg, **kw)
+        batch = {k: jnp.asarray(v) for k, v in _batch(0, False).items()}
+        batch["feats"] = jnp.ones((B * P, 4 if "SPVCNN" in str(kw) else 1))
+        batch["proj_in"] = jnp.zeros((B, 16, 64, 5))
+        batch["proj_xy"] = jnp.zeros((B, P, 2), jnp.int32)
+        jmodels, _ = jax_trainer.build_models(jcfg)
+        shapes = jax.eval_shape(lambda b: jax_trainer.create_train_state(
+            jcfg, jmodels, b, seed=3), batch)
+        models = port_trainer.build_models(pcfg, device="cpu")
+        for net, params, stats in (
+                (models.model_2d, shapes.params_2d, shapes.batch_stats_2d),
+                (models.model_3d, shapes.params_3d, shapes.batch_stats_3d)):
+            want = {".".join(str(q.key) for q in path): tuple(v.shape)
+                    for tree in (params, stats) for path, v in
+                    jax.tree_util.tree_flatten_with_path(tree)[0]}
+            got = {k: tuple(v.shape) for k, v in weights.to_flax(
+                net, net.state_dict()).items()}
+            assert got == want, (kw, sorted(set(got) ^ set(want)))
+        port_trainer.make_train_step(pcfg, models, with_pl=True)
