@@ -224,6 +224,36 @@ Phases, in order; any failure exits non-zero:
    ``get_nuscenes_ground`` on 4 seeded 32-beam sweeps (5 float32 columns,
    34,720 points) listed in a pickle, on the card and on the CPU: ground
    masks equal on >= 0.999 of the points; ms per scan.
+15. Data parallelism (``mopa_tpu_torch.parallel.mesh``, the JAX package's
+   ``shard_map``-ed step) and the other plan forms (:func:`dp_phase`), run
+   in the main process after phase 13, before it waits for phase 14's
+   worker. (a) A one-rank NCCL mesh against ``mesh=None`` on the shipped
+   MoPA step (phase 7's and 8's batches: bf16, 8 + 8 + 8 cat scans, SAM
+   and VGI on), 3 pre-EMA and 2 EMA steps from one seed with deterministic
+   algorithms: metrics and every tensor of the states (parameters,
+   batch-norm buffers, EMA, Adam moments, the generator) bit-equal; the
+   collectives and bytes a step, the step's ms with and without the mesh
+   in turns. (b) Two ranks over gloo on the one card (NCCL takes one rank
+   per card), each a process of its own (``python3 chip_smoke.py
+   --dp-worker <json>``, :func:`dp_worker`; logs in
+   ``chiprun_out/dp_rank<r>.log``): the shipped step at 4 + 4 scans a rank,
+   3 pre-EMA and 1 EMA step, each with phase 7's (8's) launches on the
+   tensor-core route and finite losses, the replicas' digests equal after
+   every step (``all_gather``); the step and all-reduce ms and MB; one
+   float32 step of 1 + 1 scans a rank on the card and on the CPU in the
+   same processes, each rank on phase 7's float32 batch (losses 1e-3
+   relative; each rank's own gradients, as they enter the all-reduce, 1e-3
+   of their tensor's largest, and the averaged ones 1e-3 of the largest of
+   the ranks' own);
+   ``train()`` on ``mopa_smoke.yaml`` for 4 iterations
+   across the EMA switch: rank 0 alone saves, both ranks load the last
+   checkpoints into fresh nets bit for bit, and rank 0's validation equals
+   one process's ``validate()`` on those weights. (c) The 3D net's float32
+   eval forward over 8 scans of 16,384 points on the shipped batched plan,
+   the monolithic plan (``nbr`` levels) and z-dense levels built as the
+   JAX package's tests build them: logits within 1e-3 x max|ref| of the
+   batched plan's, argmax agreement >= 0.999, K1 14 launches on the wide
+   form and none on the others; each form's plan-build and forward ms.
    Then print the kernels line (JSON; ``route`` is the build route,
    ``cuda``, and ``kernel_route`` the conv kernels' route on the main path,
    whose launches are phase 7's), the card line, then ``{"ok": true,
@@ -3163,6 +3193,608 @@ def backbone_phase(device, report: dict, mopa_target) -> dict:
     return out
 
 
+# -- phase 15: data parallelism (M13) and the other plan forms
+
+DP_WORKER = "--dp-worker"
+DP_WORLD = 2
+DP_TIMEOUT_S = 420   # both workers, from their start
+DP_SCANS = 4         # scans per rank and stream in (b): 8 + 8 in all
+DP_PRE_STEPS, DP_EMA_STEPS = 3, 1
+DP_TIMED_STEPS = 2
+DP_TRAIN_ITERS = 4
+W1_TURNS = 3         # (a): steps with and without the mesh, in turns
+PLAN_FORM_TOL = 1e-3     # (c): logits, of max|ref|
+PLAN_FORM_AGREE = 0.999  # (c): argmax agreement
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def state_tensors(state) -> list:
+    """(name, tensor) of everything a train state carries: parameters,
+    batch-norm buffers and EMA parameters, each optimizer's moments and
+    steps, and the generator's state; ``step`` as a tensor."""
+    import torch
+
+    out = []
+    for name in _STATE_DICTS:
+        out += [(name + "." + k, v) for k, v in getattr(state, name).items()]
+    for net in ("2d", "3d"):
+        opt = getattr(state, "opt_" + net).optimizer
+        for k, p in getattr(state, "params_" + net).items():
+            for key, v in sorted(opt.state.get(p, {}).items()):
+                out.append(("opt_{}.{}.{}".format(net, k, key), v))
+    out.append(("rng", state.rng.get_state()))
+    out.append(("step", torch.tensor([state.step])))
+    return out
+
+
+def state_digest(state) -> tuple:
+    """(names, (n, 2) int64 CPU tensor): per tensor of
+    :func:`state_tensors` the sum of its 32-bit words (bytes for 1- and
+    2-byte tensors) and their position-weighted sum; equal digests of
+    replicas that stepped alike show equal bits."""
+    import torch
+
+    names, rows, dev = [], [], state.params_2d[next(iter(state.params_2d))]
+    for name, t in state_tensors(state):
+        t = t.detach().contiguous().reshape(-1)
+        w = (t.view(torch.int32) if t.element_size() in (4, 8)
+             else t.view(torch.uint8)).long()
+        pos = torch.arange(1, w.numel() + 1, device=w.device)
+        rows.append(torch.stack([w.sum(), (w * pos).sum()]).to(dev.device))
+        names.append(name)
+    return names, torch.stack(rows).cpu()
+
+
+def replicas_equal(state, mesh, tag: str) -> int:
+    """Fails unless every rank's :func:`state_digest` equals rank 0's
+    (``all_gather`` of the digests); returns the tensors compared."""
+    import torch
+    import torch.distributed as dist
+
+    names, digest = state_digest(state)
+    gathered = [torch.zeros_like(digest) for _ in range(mesh.size)]
+    dist.all_gather(gathered, digest, group=mesh.group)
+    for r, other in enumerate(gathered[1:], 1):
+        bad = [n for n, a, b in zip(names, gathered[0], other)
+               if not torch.equal(a, b)]
+        if bad:
+            fail("{}: rank {} differs from rank 0 in {} tensors, first {}"
+                 .format(tag, r, len(bad), bad[:5]))
+    return len(names)
+
+
+def metrics_equal(a: dict, b: dict, tag: str) -> None:
+    import torch
+
+    if set(a) != set(b) or any(not torch.equal(a[k].cpu(), b[k].cpu())
+                               for k in a):
+        fail("{}: metrics differ: {} / {}".format(tag, _losses(a),
+                                                  _losses(b)))
+
+
+def deterministic(on: bool) -> None:
+    """cuDNN's and PyTorch's deterministic algorithms on or off: the
+    step's convolution and index backwards otherwise sum in an order that
+    may change from run to run."""
+    import torch
+    import torch.utils.deterministic
+
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+def world1_check(device, batches_m, batches_me) -> dict:
+    """Phase 15 (a): a one-rank NCCL mesh against ``mesh=None`` on the
+    shipped MoPA step (bf16, 8 + 8 + 8 cat scans, SAM and VGI on), 3
+    pre-EMA then 2 EMA steps from one seed on the same batches, with
+    deterministic algorithms: metrics and states bit-equal. Then the step
+    with and without the mesh in turns."""
+    import torch
+    import torch.distributed as dist
+
+    from mopa_tpu_torch.parallel import mesh as mesh_mod
+    from mopa_tpu_torch.train import trainer
+
+    cfg_m = make_cfg("bfloat16", train=True, vgi=True)
+    cfg_me = make_cfg("bfloat16", train=True, ema_xm_prob=0.7, vgi=True)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:{}".format(
+        free_port()), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = mesh_mod.data_mesh()
+        runs = []
+        for m in (None, mesh):
+            models = trainer.build_models(cfg_m, device=device, seed=0)
+            state = trainer.create_train_state(cfg_m, models)
+            steps = (trainer.make_train_step(cfg_m, models, with_pl=True,
+                                             mesh=m),
+                     trainer.make_train_step(cfg_me, models, with_pl=True,
+                                             with_ema=True, mesh=m))
+            runs.append({"state": state, "steps": steps, "metrics": []})
+        deterministic(True)
+        try:
+            for run in runs:
+                for ema, pairs in ((0, batches_m), (1, batches_me)):
+                    for src, trg in pairs:
+                        run["state"], metrics = run["steps"][ema](
+                            run["state"], src, trg)
+                        run["metrics"].append(metrics)
+                torch.cuda.synchronize()
+        finally:
+            deterministic(False)
+        for i, (a, b) in enumerate(zip(*(r["metrics"] for r in runs))):
+            metrics_equal(a, b, "world-1 mesh step {}".format(i))
+        names_a, dig_a = state_digest(runs[0]["state"])
+        names_b, dig_b = state_digest(runs[1]["state"])
+        bad = [n for n, x, y in zip(names_a, dig_a, dig_b)
+               if not torch.equal(x, y)]
+        if names_a != names_b or bad:
+            fail("world-1 mesh: the state differs from mesh=None's in {} "
+                 "tensors, first {}".format(len(bad), bad[:5]))
+        n_steps = len(batches_m) + len(batches_me)
+        out["steps_bit_equal"] = n_steps
+        out["tensors_bit_equal"] = len(names_a)
+        out["collectives_per_step"] = mesh.collectives / n_steps
+        out["bytes_per_step"] = mesh.bytes / n_steps
+        # warm steps in turns: mesh=None, mesh, ...
+        src, trg = batches_m[0]
+        ms = {"none": [], "mesh": []}
+        for _ in range(W1_TURNS):
+            for key, run in zip(("none", "mesh"), runs):
+                (run["state"], _), t, _ = timed_call(run["steps"][0],
+                                                     run["state"], src, trg)
+                ms[key].append(t)
+        out["step_ms"] = ms
+        out["step_median_ms"] = {k: statistics.median(v)
+                                 for k, v in ms.items()}
+    finally:
+        dist.destroy_process_group()
+    print("phase 15 (a) world-1 NCCL mesh: {} steps and {} tensors "
+          "bit-equal to mesh=None; {} collectives, {:.2f} MB a step; step "
+          "ms without / with the mesh {}".format(
+              out["steps_bit_equal"], out["tensors_bit_equal"],
+              out["collectives_per_step"], out["bytes_per_step"] / 1e6,
+              out["step_median_ms"]), flush=True)
+    return out
+
+
+def dp_cfg(out_dir: str):
+    """(b)'s ``train()`` config: ``mopa_smoke.yaml`` at its own size over
+    two ranks: the EMA phase from iteration 2, checkpoints and validation
+    at 4 (the file's own periods)."""
+    from mopa_tpu_torch.config.xmuda import cfg
+
+    c = cfg.clone()
+    c.merge_from_file(str(ROOT / SMOKE_YAML))
+    c.TPU.DATA_PARALLEL = DP_WORLD
+    c.SCHEDULER.MAX_ITERATION = DP_TRAIN_ITERS
+    c.OUTPUT_DIR = out_dir
+    c.RNG_SEED = 0
+    c.freeze()
+    return c
+
+
+def dp_steps(mesh, device) -> dict:
+    """(b) in one rank: the shipped MoPA step at :data:`DP_SCANS` +
+    :data:`DP_SCANS` scans, 3 pre-EMA steps and 1 EMA step, each with
+    phase 7's (8's) launches, finite losses and the replicas bit-equal
+    after it; then timed steps and their all-reduce."""
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.parallel import mesh as mesh_mod
+    from mopa_tpu_torch.train import trainer
+
+    cfg_m = make_cfg("bfloat16", train=True, vgi=True)
+    cfg_me = make_cfg("bfloat16", train=True, ema_xm_prob=0.7, vgi=True)
+    start = 1000 + 100 * mesh.rank  # each rank its own scans
+    pre, _ = mopa_batches(DP_PRE_STEPS, start, False, cfg_m,
+                          batch_size=DP_SCANS)
+    ema, _ = mopa_batches(DP_EMA_STEPS, start + 50, True, cfg_m,
+                          batch_size=DP_SCANS)
+    models = trainer.build_models(cfg_m, device=device, seed=0)
+    state = trainer.create_train_state(cfg_m, models)
+    steps = (trainer.make_train_step(cfg_m, models, with_pl=True, mesh=mesh),
+             trainer.make_train_step(cfg_me, models, with_pl=True,
+                                     with_ema=True, mesh=mesh))
+    n = len(conv_shapes())
+    out = {"steps": []}
+    for i, (is_ema, (src, trg)) in enumerate(
+            [(0, p) for p in pre] + [(1, p) for p in ema]):
+        scc.reset_launch_counts()
+        (state, metrics), ms, peak = timed_call(steps[is_ema], state, src,
+                                                trg)
+        launches = dict(scc.launches)
+        want = {K1: (2 if is_ema else 1) * n, K2_DFEATS: n - 1, K2_DW: n,
+                P1: 0, P2: 0}
+        if launches != want:
+            fail("rank {} step {}: launched {}, expected {}".format(
+                mesh.rank, i, launches, want))
+        tensor_core_routes("rank {} step {}".format(mesh.rank, i))
+        losses = _losses(metrics)
+        if not all(math.isfinite(v) for v in losses.values()) or not (
+                "pc_mm_loss" in losses and losses["vgi_inserted"] > 0):
+            fail("rank {} step {}: losses {}".format(mesh.rank, i, losses))
+        compared = replicas_equal(state, mesh, "after step {}".format(i))
+        out["steps"].append({"ema": bool(is_ema), "ms": ms, "peak_mib": peak,
+                             "losses": losses, "launches": launches,
+                             "tensors_compared": compared})
+    # timed: whole steps, then steps with each collective synchronised
+    src, trg = pre[0]
+    out["step_ms"] = [timed_call(steps[0], state, src, trg)[1]
+                      for _ in range(DP_TIMED_STEPS)]
+    reduce_ms, real = [], mesh_mod.all_reduce
+
+    def timed_reduce(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(*args, **kwargs)
+        torch.cuda.synchronize()
+        reduce_ms[-1] += (time.perf_counter() - t0) * 1e3
+
+    with mock.patch.object(mesh_mod, "all_reduce", timed_reduce):
+        for _ in range(DP_TIMED_STEPS):
+            reduce_ms.append(0.0)
+            b0, c0 = mesh.bytes, mesh.collectives
+            state, _ = steps[0](state, src, trg)
+    out["allreduce_ms"] = reduce_ms
+    out["allreduce_mb_per_step"] = (mesh.bytes - b0) / 1e6
+    out["collectives_per_step"] = mesh.collectives - c0
+    replicas_equal(state, mesh, "after the timed steps")
+    return out
+
+
+def dp_f32_card_vs_cpu(mesh, device) -> dict:
+    """(b) in one rank: one float32 step of 1 + 1 scans (+ 1 cat) a rank
+    over the mesh, on the card and on the CPU. Losses (reduced) to 1e-3
+    relative; this rank's own gradients, as they enter the all-reduce, to
+    1e-3 of each tensor's largest (phase 5's rule); the averaged gradients
+    to 1e-3 of the largest of the ranks' own (the bound the mean of two
+    such errors keeps: where the ranks' gradients cancel, the mean is
+    smaller than either). Every rank takes phase 7's float32 batch, which
+    that rule was set on: on another batch (start 401) a few 2D gradient
+    tensors of one process differ card vs CPU by up to ~4e-3 of their
+    largest, float32 rounding of the two backends (``PERF.md``, PR 13)."""
+    import torch
+    import torch.distributed as dist
+
+    from mopa_tpu_torch.parallel import mesh as mesh_mod
+    from mopa_tpu_torch.train import trainer
+
+    cfg = make_cfg("float32", train=True, batch_size=1, vgi=True)
+    (src, trg), = mopa_batches(1, 400, False, cfg, batch_size=1)[0]
+
+    def run(dev):
+        models = trainer.build_models(cfg, device=dev, seed=0)
+        models.model_2d.net_2d.dropout_rate = 0.0
+        lift_bn_biases(models[:2])
+        state = trainer.create_train_state(cfg, models)
+        step = trainer.make_train_step(cfg, models, with_pl=True, mesh=mesh)
+        buckets, real = [], mesh_mod.all_reduce
+
+        def recorded(m, tensors, average):
+            # copies: on the CPU .float().cpu() would alias the gradients
+            # that the all-reduce then averages in place
+            buckets.append([t.detach().float().cpu().clone()
+                            for t in tensors])
+            real(m, tensors, average)
+
+        with mock.patch.object(mesh_mod, "all_reduce", recorded):
+            _, metrics = step(state, src, trg)
+        local, mean = {}, {}
+        for b, (net, params) in enumerate((("2d", state.params_2d),
+                                           ("3d", state.params_3d))):
+            names = [k for k, prm in params.items() if prm.grad is not None]
+            if len(names) != len(params):
+                fail("rank {} f32 step: a parameter of the {} net has no "
+                     "gradient".format(mesh.rank, net))
+            for k, g in zip(names, buckets[b]):
+                local[net + ":" + k] = g
+                mean[net + ":" + k] = params[k].grad.detach().float().cpu()
+        return _losses(metrics), local, mean
+
+    card_l, card_local, card_mean = run(device)
+    cpu_l, cpu_local, cpu_mean = run("cpu")
+    loss_rel = {k: abs(card_l[k] - cpu_l[k]) / max(abs(cpu_l[k]), 1e-12)
+                for k in cpu_l}
+    if set(card_l) != set(cpu_l) or max(loss_rel.values()) > 1e-3:
+        fail("rank {} f32 step card vs CPU: losses {}".format(mesh.rank,
+                                                              loss_rel))
+    names = list(cpu_local)
+    scale = torch.tensor([float(cpu_local[k].abs().max()) for k in names],
+                         dtype=torch.float64)
+    ranks_scale = scale.clone()
+    dist.all_reduce(ranks_scale, op=dist.ReduceOp.MAX, group=mesh.group)
+    top = {net: max(float(s) for k, s in zip(names, scale)
+                    if k.startswith(net)) for net in ("2d", "3d")}
+    worst = {"local": 0.0, "mean": 0.0}
+    for i, k in enumerate(names):
+        for kind, card, cpu, bound in (
+                ("local", card_local, cpu_local, float(scale[i])),
+                ("mean", card_mean, cpu_mean, float(ranks_scale[i]))):
+            err = float((card[k] - cpu[k]).abs().max())
+            if k.endswith((".conv.bias", ".tconv.bias")):
+                # feeds a batch norm: the exact gradient is 0
+                if max(err, bound) > 1e-3 * top[k.split(":")[0]]:
+                    fail("rank {} f32 step: {} {} not ~0: {}".format(
+                        mesh.rank, kind, k, err))
+                continue
+            if err > 1e-3 * bound:
+                fail("rank {} f32 step card vs CPU: {} gradient {} differs "
+                     "by {} (bound of 1e-3 x {})".format(
+                         mesh.rank, kind, k, err, bound))
+            worst[kind] = max(worst[kind], err / max(bound, 1e-30))
+    return {"max_loss_rel": max(loss_rel.values()),
+            "max_grad_rel_local": worst["local"],
+            "max_grad_rel_mean": worst["mean"]}
+
+
+def dp_train(mesh, device, out_dir: str) -> dict:
+    """(b) in one rank: ``train()`` for :data:`DP_TRAIN_ITERS` iterations
+    across the EMA switch on ``mopa_smoke.yaml`` over the mesh; rank 0
+    alone saves; both ranks load the last checkpoints into fresh nets bit
+    for bit; rank 0's validation equals one process's ``validate()`` on
+    those weights."""
+    import logging
+
+    import torch
+
+    from mopa_tpu_torch.common import checkpoint
+    from mopa_tpu_torch.common.metric_logger import MetricLogger
+    from mopa_tpu_torch.data.build import build_dataloader
+    from mopa_tpu_torch.data.utils.validate import validate
+    from mopa_tpu_torch.train import common, trainer
+
+    cfg = dp_cfg(out_dir)
+    log = logging.getLogger("chip_smoke.dp")
+    log.setLevel(logging.WARNING)
+    saves, real_save = [], checkpoint.CheckpointerV2.save
+
+    def save(ck, name, *a, **kw):
+        saves.append(name)
+        return real_save(ck, name, *a, **kw)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(checkpoint.CheckpointerV2, "save", save):
+        state, eval_dict = common.train(cfg, log, out_dir, "run", "mopa")
+    torch.cuda.synchronize()
+    out = {"train_s": time.perf_counter() - t0, "saves": saves}
+    if mesh.rank != 0 and (saves or eval_dict):
+        fail("rank {} saved {} and validated {}".format(mesh.rank, saves,
+                                                        list(eval_dict)))
+    if mesh.rank == 0 and not {"model_2d_{:06d}".format(DP_TRAIN_ITERS),
+                               "model_3d_{:06d}".format(DP_TRAIN_ITERS)
+                               } <= set(saves):
+        fail("rank 0 saved {}".format(saves))
+    out["tensors_compared"] = replicas_equal(state, mesh, "after train()")
+    # the resume: a fresh copy of the nets loads the last checkpoints
+    models = trainer.build_models(cfg, device=device, seed=1)
+    loaded = trainer.create_train_state(cfg, models)
+    for which in ("2d", "3d"):
+        ckpt = checkpoint.Checkpointer()._load_file(os.path.join(
+            out_dir, "model_{}_{:06d}.pth".format(which, DP_TRAIN_ITERS)))
+        trainer.CheckpointAdapter(which, models, loaded).load_state_dict(ckpt)
+    out["resume_tensors_equal"] = states_equal(state, loaded)
+    if mesh.rank == 0:
+        one = validate(cfg, models, build_dataloader(cfg, "val", "target"),
+                       MetricLogger(), log)
+        for k, ev in eval_dict.items():
+            if not (ev.confusion_matrix == one[k].confusion_matrix).all():
+                fail("train()'s validation {} differs from one process's"
+                     .format(k))
+        out["val_miou"] = {k: float(ev.overall_iou)
+                           for k, ev in eval_dict.items()}
+    return out
+
+
+def dp_worker(out_path: str) -> None:
+    """Phase 15 (b) in one of :data:`DP_WORLD` processes (``python3
+    chip_smoke.py --dp-worker <json>``, torchrun's variables in its
+    environment): a gloo group, both ranks on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from mopa_tpu_torch.data import native_loader
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # one core each: phase 14's host-bound worker runs beside this phase
+    torch.set_num_threads(1)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    scc.build()
+    native_loader.build()
+    job = json.loads(Path(out_path).read_text())
+    # NCCL takes one rank per card: two ranks on the one card go over gloo,
+    # which carries the CUDA tensors through the host
+    dist.init_process_group("gloo", init_method="env://")
+    mesh = mesh_mod.make_data_mesh(num_devices=DP_WORLD)
+    try:
+        out = {"rank": mesh.rank, "backend": mesh.backend}
+        out["steps"] = dp_steps(mesh, device)
+        torch.cuda.empty_cache()
+        out["f32_card_vs_cpu"] = dp_f32_card_vs_cpu(mesh, device)
+        out["train"] = dp_train(mesh, device, job["train_dir"])
+        Path(out_path).write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks_check() -> dict:
+    """Phase 15 (b): :func:`dp_worker` in :data:`DP_WORLD` processes on the
+    one card; their logs go to ``chiprun_out/dp_rank<r>.log``."""
+    import tempfile
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    port = free_port()
+    procs, files = [], []
+    with tempfile.TemporaryDirectory() as train_dir:
+        for r in range(DP_WORLD):
+            job = out_dir / "dp_rank{}.json".format(r)
+            job.write_text(json.dumps({"train_dir": train_dir}))
+            log = open(out_dir / "dp_rank{}.log".format(r), "w")
+            files.append(log)
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(DP_WORLD),
+                       RANK=str(r), LOCAL_RANK="0")
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), DP_WORKER,
+                 str(job)], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+            atexit.register(lambda p=proc: p.poll() is None and p.kill())
+            procs.append(proc)
+        t0 = time.perf_counter()
+        rcs = []
+        for proc in procs:
+            try:
+                rcs.append(proc.wait(timeout=max(
+                    1.0, DP_TIMEOUT_S - (time.perf_counter() - t0))))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in files:
+            f.close()
+        wall = time.perf_counter() - t0
+    ranks = []
+    for r, rc in enumerate(rcs):
+        text = (out_dir / "dp_rank{}.log".format(r)).read_text()
+        print("-- rank {} log (last lines):\n{}".format(
+            r, "\n".join(text.strip().splitlines()[-12:])), flush=True)
+        if rc != 0:
+            fail("phase 15 (b) rank {} ended with {}".format(
+                r, "a timeout" if rc is None else "exit code {}".format(rc)))
+        ranks.append(json.loads((out_dir / "dp_rank{}.json".format(r))
+                                .read_text()))
+    out = {"wall_s": wall, "ranks": ranks}
+    for rank in ranks:
+        print("phase 15 (b) rank {} over {}: step ms {}, all-reduce ms {} "
+              "({:.2f} MB, {} collectives a step), f32 card vs CPU {}, "
+              "train() {:.1f} s, saves {}".format(
+                  rank["rank"], rank["backend"],
+                  [s["ms"] for s in rank["steps"]["steps"]] + ["warm"]
+                  + rank["steps"]["step_ms"], rank["steps"]["allreduce_ms"],
+                  rank["steps"]["allreduce_mb_per_step"],
+                  rank["steps"]["collectives_per_step"],
+                  rank["f32_card_vs_cpu"], rank["train"]["train_s"],
+                  rank["train"]["saves"]), flush=True)
+    return out
+
+
+def zdense_plan(plan, coords, batch_idx, valid):
+    """``plan`` (the monolithic one of these points) with z-dense levels,
+    built from its level tables as the JAX package's tests build them:
+    ``build_zplan`` at level 0, ``zplan_from_nbr`` over a 5 V padded table
+    above."""
+    from mopa_tpu_torch.ops import sparse_conv as sc
+    from mopa_tpu_torch.ops import voxel as voxel_ops
+
+    caps = [lv.valid.shape[0] for lv in plan.levels]
+    table = voxel_ops.voxelize(coords[None], valid[None], caps[0],
+                               batch=batch_idx[None])[0]
+    levels = []
+    for l, lv in enumerate(plan.levels):
+        if l == 0:
+            z = sc.build_zplan(table)
+        else:
+            z = sc.zplan_from_nbr(lv.nbr, voxel_ops.build_padded_ztable(
+                table, 5 * caps[l]))
+        levels.append(lv._replace(nbr=None, ranks=z.ranks, p2a=z.p2a))
+        if l + 1 < len(caps):
+            table = voxel_ops.downsample_coords(table, caps[l + 1])[0]
+    return plan._replace(levels=tuple(levels))
+
+
+def plan_forms_check(batch_8, device) -> dict:
+    """Phase 15 (c): the 3D net's float32 eval forward over the shipped
+    batched plan, the monolithic plan (``nbr`` levels) and z-dense levels
+    of 8 scans of 16,384 points: per-point logits within 1e-3 x max|ref|
+    of the batched plan's, argmax agreement >= 0.999, K1 launching 14
+    times on the wide form and never on the others; each form's plan-build
+    and forward ms."""
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+    from mopa_tpu_torch.train import trainer
+    from mopa_tpu_torch.train.common import decode_batch
+
+    cfg = make_cfg("float32")
+    model = trainer.build_models(cfg, device=device, seed=0).model_3d.eval()
+    batch = decode_batch(batch_8, device)
+    b, p = batch["img_indices"].shape[:2]
+    coords, feats = batch["coords"], batch["feats"]
+    valid = batch["point_valid"].reshape(-1)
+    bidx = batch["batch_idx"]
+
+    def wide():
+        return trainer.build_plan_from_batch(cfg, coords, valid, p)
+
+    def nbr():
+        return trainer.build_plan_from_batch(cfg, coords, valid, None,
+                                             batch_idx=bidx)
+
+    out, logits = {}, {}
+    for name, build in (("wide", wide), ("nbr", nbr), ("zdense", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = build() if build else zdense_plan(nbr(), coords, bidx, valid)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            model(feats, plan)  # warm
+            scc.reset_launch_counts()
+            (res, fwd_ms, peak) = timed_call(model, feats, plan)
+        k1 = scc.launches[K1]
+        want = len(conv_shapes()) if name == "wide" else 0
+        if k1 != want:
+            fail("plan form {}: K1 launched {} times, expected {}".format(
+                name, k1, want))
+        logits[name] = res["seg_logit"].float()[valid]
+        out[name] = {"plan_ms": build_ms, "forward_ms": fwd_ms,
+                     "peak_mib": peak, "k1_launches": k1,
+                     "num_voxels": plan.num_voxels.tolist()}
+        del plan
+    ref = logits["wide"]
+    top = float(ref.abs().max())
+    for name in ("nbr", "zdense"):
+        err = float((logits[name] - ref).abs().max())
+        agree = float((logits[name].argmax(-1) == ref.argmax(-1))
+                      .float().mean())
+        out[name].update(max_abs_err=err, rel_err=err / top, argmax=agree)
+        if err > PLAN_FORM_TOL * top or agree < PLAN_FORM_AGREE:
+            fail("plan form {}: logits differ by {} (max|ref| {}), argmax "
+                 "agreement {}".format(name, err, top, agree))
+    print("phase 15 (c) plan forms, {} x {} points, f32 3D eval forward: "
+          "{}".format(b, p, out), flush=True)
+    return out
+
+
+def dp_phase(device, batches_m, batches_me, batch_8) -> dict:
+    """Phase 15: (a) a one-rank NCCL mesh against no mesh, bit for bit;
+    (b) two ranks over gloo on the one card; (c) the plan forms."""
+    import torch
+
+    out = {"world1": world1_check(device, batches_m, batches_me)}
+    torch.cuda.empty_cache()
+    out["two_ranks"] = two_ranks_check()
+    out["plan_forms"] = plan_forms_check(batch_8, device)
+    return out
+
+
 # -- phase 14: the offline run around train()
 CONV_ITERS = 3000  # the gate's recorded run, CONVERGENCE_r05.json
 CONV_TRAJECTORY = (500, 1000, 2000, 3000)
@@ -3762,6 +4394,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("backbones")
 
+    # -- phase 15: data parallelism (one rank over NCCL, two over gloo)
+    # and the other plan forms; the phase 14 worker runs on beside it
+    report["data_parallel"] = dp_phase(device, batches_m, batches_me,
+                                       batch_8)
+    torch.cuda.empty_cache()
+    lap("data_parallel")
+
     # -- phase 14: the convergence gate, pslabel_update, nuScenes ground
     report["offline"] = offline_phase(device, worker)
     torch.cuda.empty_cache()
@@ -3820,5 +4459,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == [OFFLINE_WORKER]:
         offline_worker(sys.argv[2])
+    elif sys.argv[1:2] == [DP_WORKER]:
+        dp_worker(sys.argv[2])
     else:
         main()

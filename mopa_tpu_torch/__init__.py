@@ -23,6 +23,11 @@ the command lines ``train.train_{baseline,xmuda,xmuda_mopa}`` and
 writer ``data.sam_refine`` and the attention blocks of
 ``models.attention``; and the other 3D backbones, ``models.spvcnn`` (its
 convs on the same kernels, which take any width) and ``models.salsanext``,
-with the depth head of ``models.resnet34_unet`` (``TRAIN.DEPTH_PRED``).
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+with the depth head of ``models.resnet34_unet`` (``TRAIN.DEPTH_PRED``);
+and data parallelism over ``torch.distributed`` (``parallel.mesh``, the
+step's collectives, per-rank batches, rank-0-only outputs), the JAX
+package's other plan and conv forms (``models.scn_unet.build_unet_plan``,
+the z-dense plans of ``ops.sparse_conv``) and the visualisation helpers of
+``data.utils``. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """

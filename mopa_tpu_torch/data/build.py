@@ -12,8 +12,19 @@ port's eval plan sorts its points itself (``ops.voxel.voxelize``).
 ``DataLoader`` reads the samples of a batch on a pool of ``num_workers``
 threads and collates on one producer thread, ``PREFETCH`` batches ahead of
 the consumer; an exception in either reaches the consumer, and a consumer
-that stops early stops the producer. With ``torch.distributed`` initialised
-each process takes the rank-th slice of every sampled batch.
+that stops early stops the producer.
+
+Data parallelism: with a ``mesh`` (``parallel.mesh.DataMesh``) each rank
+loads the rank-th of ``mesh.size`` contiguous blocks of every sampled batch,
+the samples that device r of the JAX package's one-host mesh steps on
+(``P("data")`` splits the global batch so), so ``TRAIN.BATCH_SIZE`` stays
+the global batch and the batch-norm statistics of each rank see the same
+samples as JAX's shard r. (The JAX package's loader slices
+``indices[process::processes]``, which is its split across hosts, each of
+which then shards its slice over its own devices.) Every rank's sampler has
+the same seed, so the blocks are disjoint. Each rank's host VGI draws from
+its own copy of the loader's seeded stream over its own block, where JAX's
+one host draws one stream over the whole batch.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from mopa_tpu_torch.data.semantic_kitti.semantic_kitti_dataloader import \
     SemanticKITTISCN
 from mopa_tpu_torch.data.synthetic import SyntheticSCN
 from mopa_tpu_torch.models.build import plan_levels
+from mopa_tpu_torch.parallel.mesh import shard_range
 
 PREFETCH = 2        # batches the producer collates ahead of its consumer
 AUDIT_BATCHES = 2   # batches of each pass that carry the capacity audit
@@ -67,11 +79,12 @@ class DataLoader:
     producer thread whose samples load on a pool of ``num_workers``
     threads (in the caller's thread at 0). The first
     :data:`AUDIT_BATCHES` batches of each pass carry the capacity
-    audits."""
+    audits. With ``mesh`` each batch is this rank's block of the sampled
+    one."""
 
     def __init__(self, dataset, batch_sampler, point_budget, mask_budget=64,
                  num_workers=0, sort_points=False,
-                 host_plan_capacities=None, vgi_host=None):
+                 host_plan_capacities=None, vgi_host=None, mesh=None):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.point_budget = point_budget
@@ -86,17 +99,16 @@ class DataLoader:
                 int(vgi_host.get("seed", 0)))
         self.vgi_host = vgi_host
         self.num_workers = num_workers
+        self.mesh = mesh
 
-    @staticmethod
-    def _host_slice(indices):
-        """This process's slice of a sampled batch: every world-size-th
-        index from its rank, when ``torch.distributed`` is initialised."""
-        import torch.distributed as dist
-
+    def _host_slice(self, indices):
+        """This rank's block of a sampled batch (all of it without a
+        mesh)."""
         indices = np.asarray(indices)
-        if not (dist.is_available() and dist.is_initialized()):
+        if self.mesh is None:
             return indices
-        return indices[dist.get_rank()::dist.get_world_size()]
+        lo, hi = shard_range(len(indices), self.mesh)
+        return indices[lo:hi]
 
     def _load_batch(self, indices, pool=None, audit=True):
         if pool is not None:
@@ -133,13 +145,14 @@ class DataLoader:
 
 
 def build_dataloader(cfg, mode="train", domain="source", start_iteration=0,
-                     want_ema=None):
+                     want_ema=None, mesh=None):
     """The loader of ``domain`` ("source" or "target") in ``mode`` ("train",
     "val" or "test"). ``want_ema=False`` leaves out the EMA teacher's inputs
     (its view, ``ema_map`` and the ``hp_ori_*`` plans), which the steps
     before ``ema_start_iter`` never read; the train loop rebuilds the target
     loader with ``want_ema=True`` at the switch. None keeps what the config
-    asks for. ``start_iteration`` resumes the sampler."""
+    asks for. ``start_iteration`` resumes the sampler. With ``mesh`` the
+    loader yields this rank's block of each batch."""
     assert mode in ("train", "val", "test")
     dataset_cfg = cfg.get("DATASET_" + domain.upper())
     split = dataset_cfg[mode.upper()]
@@ -219,4 +232,4 @@ def build_dataloader(cfg, mode="train", domain="source", start_iteration=0,
                       mask_budget=int(cfg.TPU.SAM_MASK_BUDGET),
                       num_workers=cfg.DATALOADER.NUM_WORKERS,
                       sort_points=is_train, host_plan_capacities=host_caps,
-                      vgi_host=vgi_host)
+                      vgi_host=vgi_host, mesh=mesh)

@@ -21,6 +21,14 @@ S * cap_l, slots sample-major, every integer equal to the reference's.
 Several forwards fuse into one (the train step's [source; target] scans):
 each level then carries the batch-norm domain of every slot (``dom``) and the
 batch norms of a training forward take statistics per domain.
+
+A level's submanifold convs take whichever form its plan carries, routed as
+the reference routes them: a z-dense plan (``p2a``), else the wide-column
+plan (``ranks``/``sel``: the K1 kernel on CUDA tensors), else the exact
+neighbour map (``nbr``). The shipped plans (:func:`build_unet_plan_batched`,
+:func:`plan_from_host_arrays`) are wide; the reference's monolithic
+:func:`build_unet_plan` gives ``nbr`` levels and no run ends, so its input
+pooling is one scatter-add (``voxel.pool_features``).
 """
 
 from __future__ import annotations
@@ -40,9 +48,12 @@ class LevelPlan(NamedTuple):
     down_nbr: torch.Tensor | None  # (V_l, 8) coarse -> fine gather map
     f2c: torch.Tensor | None       # (V_{l-1},) fine -> coarse slot map
     up_off: torch.Tensor | None    # (V_{l-1},) deconv kernel-offset index
-    ranks: torch.Tensor            # (V_l * 9,) int32 wide-column plan
-    sel: torch.Tensor              # (V_l * 9,) int32 packed dz codes
-    dom: torch.Tensor | None = None  # (V_l,) BN-domain id (fused forwards)
+    # wide-column plan (int32; with p2a: z-dense padded-slot starts)
+    ranks: torch.Tensor | None = None  # (V_l * 9,)
+    sel: torch.Tensor | None = None    # (V_l * 9,) packed dz codes
+    dom: torch.Tensor | None = None    # (V_l,) BN-domain id (fused forwards)
+    nbr: torch.Tensor | None = None    # (V_l, 27) exact neighbour map
+    p2a: torch.Tensor | None = None    # (Vp_l,) z-dense active slot map
 
 
 class UNetPlan(NamedTuple):
@@ -50,8 +61,10 @@ class UNetPlan(NamedTuple):
     point_inverse: torch.Tensor  # (N,) point -> level-0 slot (-1 padding)
     point_counts: torch.Tensor   # (V_0,) points per voxel
     num_voxels: torch.Tensor     # (L,) active voxels per level
-    point_end: torch.Tensor      # (V_0,) run-order position of last point
-    point_perm: torch.Tensor     # (N,) run order -> original point index
+    # run-order pooling: the last point of each voxel in run order and the
+    # run order -> original point map; None = scatter pooling
+    point_end: torch.Tensor | None = None   # (V_0,)
+    point_perm: torch.Tensor | None = None  # (N,)
 
 
 # Per-level capacity as a fraction of the point budget; sized to hold the true
@@ -141,6 +154,56 @@ def build_unet_plan_batched(coords: torch.Tensor, valid: torch.Tensor,
                     num_voxels=torch.stack(nums).sum(dim=1),
                     point_end=(end_pos + poff).reshape(-1),
                     point_perm=(perm + poff).reshape(-1))
+
+
+def build_unet_plan(coords: torch.Tensor, batch_idx: torch.Tensor,
+                    valid: torch.Tensor, num_levels: int,
+                    capacities: Sequence[int] | None = None,
+                    batch_domains: Sequence[int] | None = None) -> UNetPlan:
+    """The reference's monolithic plan of a flat batch: one voxel table per
+    level over all N points, its batch index in the key, exact (V, 27)
+    neighbour maps (``nbr`` levels) and no run ends (scatter pooling).
+
+    Args:
+        coords: (N, 3) integer coordinates in [0, 4096).
+        batch_idx: (N,) each point's scan.
+        valid: (N,) bool.
+        capacities: per-level capacities (default: the schedule of N).
+        batch_domains: optional BN-domain id per scan; each slot's ``dom``
+            is its scan's.
+    """
+    n = coords.shape[0]
+    if capacities is None:
+        capacities = capacity_schedule(n, num_levels)
+    capacities = [int(c) for c in capacities]
+    doms = None
+    if batch_domains is not None:
+        doms = torch.as_tensor(batch_domains, dtype=torch.int64,
+                               device=coords.device)
+    table, inverse, counts, _ = voxel_ops.voxelize(
+        coords[None], valid[None], capacities[0], batch=batch_idx[None])
+    levels = []
+    nums = []
+    prev = table
+    pending = (None, None, None)  # (down_nbr, f2c, up_off) into this level
+    for l in range(num_levels):
+        nums.append(prev.num[0])
+        dom = (None if doms is None else
+               doms[prev.batch[0].clamp(0, doms.shape[0] - 1)])
+        levels.append(LevelPlan(
+            valid=prev.valid_mask()[0], down_nbr=pending[0], f2c=pending[1],
+            up_off=pending[2], dom=dom,
+            nbr=sc.build_submanifold_plan(prev)[0]))
+        if l + 1 < num_levels:
+            coarse, f2c = voxel_ops.downsample_coords(prev,
+                                                      capacities[l + 1])
+            up_off = sc.up_offset_index(prev.coords)
+            down_nbr = sc.down_plan_from_f2c(f2c, up_off, prev.valid_mask(),
+                                             capacities[l + 1])
+            pending = (down_nbr[0], f2c[0], up_off[0])
+            prev = coarse
+    return UNetPlan(levels=tuple(levels), point_inverse=inverse[0],
+                    point_counts=counts[0], num_voxels=torch.stack(nums))
 
 
 HOST_PLAN_KEYS = ("rankn", "ebits", "cbits", "downn", "downe", "f2c",
@@ -304,6 +367,9 @@ def concat_plans(plans: Sequence[UNetPlan]) -> UNetPlan:
             off += stride
         return torch.cat(out)
 
+    def cat(arrs):
+        return None if arrs[0] is None else torch.cat(arrs)
+
     levels = []
     for l in range(len(plans[0].levels)):
         lv = [p.levels[l] for p in plans]
@@ -315,29 +381,58 @@ def concat_plans(plans: Sequence[UNetPlan]) -> UNetPlan:
                                 for p in plans])
             f2c = shifted([x.f2c for x in lv], caps)
             up_off = torch.cat([x.up_off for x in lv])
+        ranks = p2a = None
+        if lv[0].p2a is not None:
+            # z-dense: ranks in padded-slot space (each plan's sentinel
+            # Vp_i becomes the joint one), p2a in active-slot space
+            vps = [x.p2a.shape[0] for x in lv]
+            r_parts, p_parts, off_vp, off_cap = [], [], 0, 0
+            for x, vp_i, cap_i in zip(lv, vps, caps):
+                r_parts.append(torch.where(x.ranks < vp_i, x.ranks + off_vp,
+                                           sum(vps)))
+                p_parts.append(torch.where(x.p2a >= 0, x.p2a + off_cap, -1))
+                off_vp += vp_i
+                off_cap += cap_i
+            ranks, p2a = torch.cat(r_parts), torch.cat(p_parts)
+        elif lv[0].ranks is not None:
+            ranks = shifted([x.ranks for x in lv], caps)
         levels.append(LevelPlan(
             valid=torch.cat([x.valid for x in lv]), down_nbr=down_nbr,
-            f2c=f2c, up_off=up_off,
-            ranks=shifted([x.ranks for x in lv], caps),
-            sel=torch.cat([x.sel for x in lv]),
-            dom=(torch.cat([x.dom for x in lv]) if lv[0].dom is not None
-                 else None)))
+            f2c=f2c, up_off=up_off, ranks=ranks,
+            sel=cat([x.sel for x in lv]), dom=cat([x.dom for x in lv]),
+            nbr=(shifted([x.nbr for x in lv], caps)
+                 if lv[0].nbr is not None else None), p2a=p2a))
     npts = [p.point_inverse.shape[0] for p in plans]
+    point_end = point_perm = None
+    if all(p.point_end is not None for p in plans):
+        point_end = shifted([p.point_end for p in plans], npts)
+        if any(p.point_perm is not None for p in plans):
+            # a plan without a permutation is in run order already
+            point_perm = shifted(
+                [torch.arange(n, device=p.point_inverse.device)
+                 if p.point_perm is None else p.point_perm
+                 for p, n in zip(plans, npts)], npts)
     return UNetPlan(
         levels=tuple(levels),
         point_inverse=shifted([p.point_inverse for p in plans],
                               [p.levels[0].valid.shape[0] for p in plans]),
         point_counts=torch.cat([p.point_counts for p in plans]),
         num_voxels=sum(p.num_voxels for p in plans),
-        point_end=shifted([p.point_end for p in plans], npts),
-        point_perm=shifted([p.point_perm for p in plans], npts))
+        point_end=point_end, point_perm=point_perm)
 
 
 def apply_submanifold(x: torch.Tensor, lv: LevelPlan,
                       weight: torch.Tensor) -> torch.Tensor:
-    """Submanifold conv through the level's wide-column plan (the K1
-    kernel on CUDA tensors)."""
-    return sc.submanifold_conv_wide(x, sc.WidePlan(lv.ranks, lv.sel), weight)
+    """Submanifold conv through whichever plan form the level carries: the
+    z-dense plan, else the wide-column plan (the K1 kernel on CUDA
+    tensors), else the exact neighbour map."""
+    if lv.p2a is not None:
+        return sc.submanifold_conv_zdense(x, sc.ZPlan(lv.ranks, lv.p2a),
+                                          weight)
+    if lv.ranks is not None:
+        return sc.submanifold_conv_wide(x, sc.WidePlan(lv.ranks, lv.sel),
+                                        weight)
+    return sc.submanifold_conv(x, lv.nbr, weight)
 
 
 class _BN(nn.Module):
@@ -420,9 +515,15 @@ class SparseUNet(nn.Module):
         """(N, in_channels) point features -> (N, m) in the compute dtype.
         ``n_domains`` > 1 fuses that many forwards whose slots the plan's
         ``dom`` assigns (training-mode batch norm per domain)."""
-        x = voxel_ops.pool_features_sorted(
-            point_feats.to(self.compute_dtype), plan.point_counts,
-            plan.point_end, plan.point_perm)
+        feats = point_feats.to(self.compute_dtype)
+        if plan.point_end is not None:
+            x = voxel_ops.pool_features_sorted(feats, plan.point_counts,
+                                               plan.point_end,
+                                               plan.point_perm)
+        else:
+            x = voxel_ops.pool_features(feats, plan.point_inverse,
+                                        plan.point_counts,
+                                        plan.levels[0].valid.shape[0])
         x = apply_submanifold(x, plan.levels[0], self.stem)
         x = self._level(0, x, plan, n_domains)
         x = self.final_bn(x, plan.levels[0], n_domains)

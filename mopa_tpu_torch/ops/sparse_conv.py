@@ -6,6 +6,11 @@
   is the hand-written K1 kernel and its backward the K2 kernels of
   ``ops.sparse_conv_cuda``; on CPU tensors the plain twins
   :func:`submanifold_conv_wide_ref` and :func:`submanifold_conv_wide_bwd_ref`.
+  The reference's other two forms are plain gathers and one matmul, as
+  they are XLA in JAX, each with the reference's scatter-free backward:
+  :func:`submanifold_conv` over the exact (V, 27) neighbour map
+  (:func:`build_submanifold_plan`) and :func:`submanifold_conv_zdense` over
+  a z-padded :class:`ZPlan` (:func:`build_zplan`, :func:`zplan_from_nbr`).
 * ``Convolution(3, a, b, 2, 2, False)`` -> :func:`strided_conv`.
 * ``Deconvolution(3, a, b, 2, 2, False)`` -> :func:`deconv`.
   Both differentiate by autograd through their gather + matmul: the gradients
@@ -35,21 +40,62 @@ def kernel_offsets(kernel_size: int = 3) -> np.ndarray:
     return np.asarray(list(itertools.product(r, r, r)), dtype=np.int64)
 
 
-def build_submanifold_plan(table: voxel_ops.VoxelTable) -> torch.Tensor:
-    """Exact neighbour map of a submanifold 3x3x3 conv: (S, V, 27) local
-    slots, -1 = miss. One ``searchsorted`` per sample row over the sorted
-    table keys (the reference resolves the same matches by sort-merge)."""
+WIDE_COLS = np.asarray([(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+                       dtype=np.int64)  # (9, 2) the wide plan's columns
+
+
+def build_submanifold_plan(table: voxel_ops.VoxelTable,
+                           kernel_size: int = 3,
+                           ht: "voxel_ops.HashTable | None" = None,
+                           method: str = "merge") -> torch.Tensor:
+    """Exact neighbour map of a submanifold conv: (S, V, K) local slots,
+    -1 = miss.
+
+    As in the reference, only the first half of the offsets is looked up;
+    the match u -> u + o is injective, so the map of -o is its transpose
+    (one collision-free scatter), and the centre is the identity. The
+    lookup is the reference's ``method`` ("merge": one ``searchsorted`` per
+    sample row over its sorted keys; "presorted": one per offset,
+    :func:`voxel.merge_lookup_presorted`) or, with ``ht`` (a flat table's
+    :func:`voxel.build_hash`), the hash probes; all give the same map."""
     s, v = table.key.shape
     dev = table.key.device
-    offs = torch.as_tensor(kernel_offsets(3), device=dev)        # (27, 3)
-    q = table.coords[:, :, None, :] + offs                       # (S, V, 27, 3)
-    q_valid = table.valid_mask()[:, :, None] & (
-        (q >= 0) & (q < voxel_ops.SHIFT)).all(dim=-1)
-    sample = torch.arange(s, device=dev)[:, None, None]
-    qkey = voxel_ops.pack_keys(q, sample, q_valid).reshape(s, v * 27)
-    pos = torch.searchsorted(table.key, qkey).clamp(max=v - 1)
-    hit = (table.key.gather(1, pos) == qkey) & q_valid.reshape(s, v * 27)
-    return torch.where(hit, pos, torch.full_like(pos, -1)).reshape(s, v, 27)
+    offs_np = kernel_offsets(kernel_size)
+    k = offs_np.shape[0]
+    half = k // 2
+    offs = torch.as_tensor(offs_np[:half], device=dev)           # (h, 3)
+    valid = table.valid_mask()
+    q = table.coords[:, :, None, :] + offs                       # (S, V, h, 3)
+    q_valid = valid[:, :, None] & ((q >= 0) & (q < voxel_ops.SHIFT)).all(-1)
+    qkey = voxel_ops.pack_keys(q, table.batch[:, :, None], q_valid)
+    if ht is not None:
+        q_hi, q_lo = voxel_ops.pack_keys_hilo(q[0], table.batch[0, :, None],
+                                              q_valid[0])
+        nbr_half = voxel_ops.hash_lookup(
+            table, ht, q_hi.reshape(-1), q_lo.reshape(-1),
+            q_valid[0].reshape(-1)).reshape(1, v, half)
+    elif method == "presorted":
+        q_hi, q_lo = voxel_ops.pack_keys_hilo(q[0], table.batch[0, :, None],
+                                              q_valid[0])
+        nbr_half = torch.stack([voxel_ops.merge_lookup_presorted(
+            table, q_hi[:, j], q_lo[:, j], q_valid[0, :, j])
+            for j in range(half)], dim=1)[None]
+    else:
+        flat = qkey.reshape(s, v * half)
+        pos = torch.searchsorted(table.key, flat).clamp(max=v - 1)
+        hit = (table.key.gather(1, pos) == flat) & q_valid.reshape(s, -1)
+        nbr_half = torch.where(hit, pos, -1).reshape(s, v, half)
+    slots = torch.arange(v, device=dev).expand(s, v)
+    centre = torch.where(valid, slots, -1)
+    # nbr[u, j] = w  =>  nbr[w, k-1-j] = u; misses land in the dump slot
+    mirror_col = (half - 1 - torch.arange(half, device=dev))
+    tgt = torch.where(nbr_half >= 0, nbr_half * half + mirror_col,
+                      v * half).reshape(s, -1)
+    src = slots[:, :, None].expand(s, v, half).reshape(s, -1)
+    mirror = torch.full((s, v * half + 1), -1, dtype=torch.int64,
+                        device=dev).scatter_(1, tgt, src)[:, :-1]
+    return torch.cat([nbr_half, centre[:, :, None],
+                      mirror.reshape(s, v, half)], dim=2)
 
 
 class WidePlan(NamedTuple):
@@ -92,6 +138,84 @@ def wide_from_nbr(nbr: torch.Tensor, capacity: int):
     t1 = code((e0 & e1, 1), ((e0 | e1) & e2, 2))
     t2 = code((e0 & e1 & e2, 2))
     return ranks, t0 + (t1 << 2) + (t2 << 4)
+
+
+def build_wide_plan(table: voxel_ops.VoxelTable) -> WidePlan:
+    """The wide-column plan of S tables as one flat plan: ranks offset by
+    each sample's first row (S * V slots, sample-major, as the batched UNet
+    plan lays them out); of a flat table, the reference's
+    ``build_wide_plan``."""
+    s, v = table.key.shape
+    ranks, sel = wide_from_nbr(build_submanifold_plan(table), v)
+    off = (torch.arange(s, device=ranks.device) * v)[:, None, None]
+    return WidePlan(ranks=(ranks + off).reshape(-1).to(torch.int32),
+                    sel=sel.reshape(-1).to(torch.int32))
+
+
+class ZPlan(NamedTuple):
+    """z-dense wide-column plan: window reads are dz-aligned by
+    construction (the reference's ``ZPlan``).
+
+    Attributes:
+        ranks: (V*9,) padded-slot window starts, v-major then column
+            (columns enumerate (dx, dy), dx slowest); ``Vp`` is the
+            all-miss sentinel, which reads zero rows.
+        p2a: (Vp,) active slot per padded slot, -1 = a zero slot.
+    """
+
+    ranks: torch.Tensor
+    p2a: torch.Tensor
+
+
+def zplan_from_nbr(nbr: torch.Tensor,
+                   pz: voxel_ops.PaddedZTable) -> ZPlan:
+    """The z-dense plan from a flat table's exact (V, 27) neighbour map and
+    its :func:`voxel.build_padded_ztable`: a column's window starts at the
+    padded slot of its dz = -1 key, which is ``a2p`` of that neighbour, or
+    1 (2) below ``a2p`` of its dz = 0 (+1) neighbour; ``Vp`` where the
+    column has none."""
+    v = nbr.shape[0]
+    vp = pz.capacity
+    ap = pz.a2p[nbr.clamp(0, v - 1)]
+    n = nbr.reshape(v, 9, 3)
+    a = ap.reshape(v, 9, 3)
+    start = torch.where(n[..., 0] >= 0, a[..., 0],
+                        torch.where(n[..., 1] >= 0, a[..., 1] - 1,
+                                    torch.where(n[..., 2] >= 0, a[..., 2] - 2,
+                                                vp)))
+    return ZPlan(ranks=start.reshape(-1), p2a=pz.p2a)
+
+
+def build_zplan(table: voxel_ops.VoxelTable,
+                pad_capacity: int | None = None) -> ZPlan:
+    """The z-dense plan of a flat table straight from its padded keys
+    (:func:`voxel.build_padded_ztable_keys`, capacity 5 V by default): each
+    column's window-start key (x+dx, y+dy, z-1) looked up among them, kept
+    only where the slot two above holds (x+dx, y+dy, z+1), else ``Vp``."""
+    t = voxel_ops._flat(table)
+    v = t.key.shape[0]
+    vp = 5 * v if pad_capacity is None else int(pad_capacity)
+    pz = voxel_ops.build_padded_ztable_keys(table, vp)
+    valid = t.valid_mask()
+    zbase = voxel_ops.SHIFT + 8
+    dev = t.key.device
+    cols = torch.as_tensor(WIDE_COLS, device=dev)
+    base_lo = t.coords[:, 1] * zbase + t.coords[:, 2] + 4
+    q_hi = torch.where(valid[:, None], t.key_hi[:, None] + cols[:, 0],
+                       voxel_ops.PAD_HI).reshape(-1)
+    q_lo = torch.where(valid[:, None],
+                       base_lo[:, None] + cols[:, 1] * zbase - 1,
+                       voxel_ops.PAD_HI).reshape(-1)
+    qx = t.coords[:, 0:1] + cols[:, 0]
+    qy = t.coords[:, 1:2] + cols[:, 1]
+    q_valid = (valid[:, None] & (qx >= 0) & (qx < voxel_ops.SHIFT)
+               & (qy >= 0) & (qy < voxel_ops.SHIFT)).reshape(-1)
+    slots = voxel_ops.merge_lookup_keys(pz.key_hi, pz.key_lo, q_hi, q_lo,
+                                        q_valid)
+    probe = (slots + 2).clamp(0, vp - 1)
+    ok = ((slots >= 0) & (pz.key_hi[probe] == q_hi)
+          & (pz.key_lo[probe] == q_lo + 2))
+    return ZPlan(ranks=torch.where(ok, slots, vp), p2a=pz.p2a)
 
 
 def down_plan_from_f2c(f2c: torch.Tensor, up_off: torch.Tensor,
@@ -252,6 +376,93 @@ def submanifold_conv_wide(feats: torch.Tensor, plan: WidePlan,
     backward; a build or launch failure raises); CPU tensors run the plain
     twins."""
     return _SubmanifoldConvWide.apply(feats, weight, plan.ranks, plan.sel)
+
+
+def _zdense_align(feats: torch.Tensor, ranks: torch.Tensor,
+                  p2a: torch.Tensor) -> torch.Tensor:
+    """(V, C) rows -> (V, 27*C) windows read from the z-padded slots: the
+    active rows placed at their padded slots (zero elsewhere), three
+    consecutive slots per column, the all-miss sentinel on zero rows."""
+    c = feats.shape[1]
+    vp = p2a.shape[0]
+    fp = torch.cat([_masked_take(feats, p2a), feats.new_zeros(3, c)])
+    windows = torch.cat([fp[:vp + 1], fp[1:vp + 2], fp[2:vp + 3]], dim=1)
+    return windows[ranks.long().clamp(0, vp)].reshape(-1, 27 * c)
+
+
+class _SubmanifoldConvZdense(torch.autograd.Function):
+    """The reference's ``_submanifold_conv_zdense`` custom VJP: the windows
+    are gathered again in the backward; ``d_feats`` is the same conv of the
+    cotangent with the mirrored, transposed weight, ``d_w`` the windows'
+    transpose times the cotangent, in float32."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, ranks, p2a):
+        k, cin, cout = weight.shape
+        ctx.save_for_backward(feats, weight, ranks, p2a)
+        return _zdense_align(feats, ranks, p2a) @ weight.reshape(
+            k * cin, cout).to(feats.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weight, ranks, p2a = ctx.saved_tensors
+        k, cin, cout = weight.shape
+        g = g.to(feats.dtype)
+        d_w = (_zdense_align(feats, ranks, p2a).float().T @ g.float())
+        w_bwd = weight.flip(0).transpose(1, 2).reshape(k * cout, cin)
+        d_feats = _zdense_align(g, ranks, p2a) @ w_bwd.to(g.dtype)
+        return (d_feats.to(feats.dtype),
+                d_w.reshape(k, cin, cout).to(weight.dtype), None, None)
+
+
+def submanifold_conv_zdense(feats: torch.Tensor, plan: ZPlan,
+                            weight: torch.Tensor) -> torch.Tensor:
+    """Submanifold conv through a :class:`ZPlan` (the exact neighbour
+    conv's numbers), differentiable."""
+    return _SubmanifoldConvZdense.apply(feats, weight, plan.ranks, plan.p2a)
+
+
+def _gather_concat(feats: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """(V, K*C): the rows at each of the K neighbours, zero at misses."""
+    v, k = nbr.shape
+    return _masked_take(feats, nbr.reshape(-1)).reshape(v, k * feats.shape[1])
+
+
+class _SubmanifoldConv(torch.autograd.Function):
+    """The reference's ``_submanifold_conv`` custom VJP, scatter-free: the
+    cotangent gathered over the mirrored map gives ``d_feats`` (one GEMM
+    with the per-offset transposed weight) and ``d_w`` (the features'
+    transpose times it, in float32)."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, nbr):
+        k, cin, cout = weight.shape
+        ctx.save_for_backward(feats, weight, nbr)
+        return _gather_concat(feats, nbr) @ weight.reshape(
+            k * cin, cout).to(feats.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weight, nbr = ctx.saved_tensors
+        k, cin, cout = weight.shape
+        g = g.to(feats.dtype)
+        g_gathered = _gather_concat(g, nbr.flip(1))         # (V, K*Cout)
+        w_t = weight.transpose(1, 2).reshape(k * cout, cin).to(g.dtype)
+        d_feats = g_gathered @ w_t
+        d_w = (feats.float().T @ g_gathered.float()).reshape(
+            cin, k, cout).transpose(0, 1)
+        return d_feats.to(feats.dtype), d_w.to(weight.dtype), None
+
+
+def submanifold_conv(feats: torch.Tensor, nbr: torch.Tensor,
+                     weight: torch.Tensor,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """out[v] = sum_k feats[nbr[v, k]] @ weight[k] (misses contribute zero)
+    over the exact (V, K) neighbour map, plus ``bias``; differentiable."""
+    out = _SubmanifoldConv.apply(feats, weight, nbr)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
 
 
 def strided_conv(fine_feats: torch.Tensor, down_nbr: torch.Tensor,

@@ -4,12 +4,15 @@
 
 ``python -m mopa_tpu_torch.test.test --cfg <yaml> --model_prefix <dir>
   [--ckpt2d x.pth --ckpt3d y.pth] [--pselab_dir NAME] [KEY VALUE ...]``
-on a CUDA device.
+on a CUDA device (``cuda:LOCAL_RANK``). Under ``torchrun`` rank 0 alone
+evaluates the whole split and writes the pseudo-labels; the other ranks
+exit.
 """
 
 import os.path as osp
 
 import torch
+import torch.distributed as dist
 
 from mopa_tpu_torch.common.checkpoint import CheckpointerV2
 from mopa_tpu_torch.common.logger import get_logger
@@ -17,6 +20,7 @@ from mopa_tpu_torch.common.metric_logger import MetricLogger
 from mopa_tpu_torch.common.rng import set_random_seed
 from mopa_tpu_torch.data.build import build_dataloader
 from mopa_tpu_torch.data.utils.validate import validate
+from mopa_tpu_torch.parallel import mesh as mesh_mod
 from mopa_tpu_torch.train import trainer as trainer_mod
 from mopa_tpu_torch.train.common import load_cfg, parse_args, require_cuda
 
@@ -53,11 +57,14 @@ def main():
                       "configs/nuscenes/usa_singapore/xmuda.yaml",
                       with_test_args=True)
     require_cuda()
+    mesh_mod.initialize_distributed()
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     cfg = load_cfg(args)
     logger = get_logger(abbrev_name=args.task)
     logger.info("{} devices available".format(torch.cuda.device_count()))
     logger.info(args)
-    test_model(cfg, logger, args)
+    test_model(cfg, logger, args, device=mesh_mod.local_device())
 
 
 if __name__ == "__main__":

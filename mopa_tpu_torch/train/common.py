@@ -6,6 +6,10 @@
 checkpoint streams, and runs the iteration loop: logging, checkpoints and
 validation, and MoPA's switch to the EMA teacher step at
 ``ema_start_iter``; :func:`main_common` is the train CLIs' entry point.
+Under ``torchrun`` with ``TPU.DATA_PARALLEL`` N (or 0) a run trains
+data-parallel over the N processes (``parallel.mesh``), each on its card
+``cuda:LOCAL_RANK``; rank 0 alone writes the log, the checkpoints and the
+IoU table, and validates the whole val split.
 
 ``device_batch`` ships a collated numpy batch in its compact wire dtypes,
 without what the step can derive or never reads; ``device_prefetch`` does
@@ -25,6 +29,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mopa_tpu_torch.common.checkpoint import CheckpointerV2
 from mopa_tpu_torch.common.config import purge_cfg
@@ -34,6 +39,7 @@ from mopa_tpu_torch.common.run_ahead import run_ahead
 from mopa_tpu_torch.config.xmuda import cfg as default_cfg
 from mopa_tpu_torch.data.build import build_dataloader
 from mopa_tpu_torch.models.metric import SegIoU
+from mopa_tpu_torch.parallel import mesh as mesh_mod
 
 _INT_KEYS = ("coords", "img_indices", "seg_label", "pseudo_label_2d",
              "pseudo_label_3d", "sam_mask", "ema_map", "ori_coords",
@@ -309,13 +315,21 @@ def _close(*iterators) -> None:
 def train(cfg, logger, output_dir="", run_name="", variant="mopa",
           device="cuda"):
     """Train ``variant`` ("baseline", "xmuda" or "mopa") as ``cfg`` says,
-    on ``device`` (the card unless the caller asks for the CPU). Resumes
-    from the pointer files in ``output_dir`` (``AUTO_RESUME``) or from
-    ``RESUME_PATH``; saves both streams every ``TRAIN.CHECKPOINT_PERIOD``
-    iterations and at the end, validates every ``VAL.PERIOD`` iterations
-    and at the end (keeping the best-metric checkpoints from half way on),
-    and writes ``val_class_iou.xlsx``. Returns (state, the last
-    validation's ``eval_dict``).
+    on ``device`` (the card unless the caller asks for the CPU; a bare
+    "cuda" is ``cuda:LOCAL_RANK``). Resumes from the pointer files in
+    ``output_dir`` (``AUTO_RESUME``) or from ``RESUME_PATH``; saves both
+    streams every ``TRAIN.CHECKPOINT_PERIOD`` iterations and at the end,
+    validates every ``VAL.PERIOD`` iterations and at the end (keeping the
+    best-metric checkpoints from half way on), and writes
+    ``val_class_iou.xlsx``. Returns (state, the last validation's
+    ``eval_dict``).
+
+    Data parallel (``parallel.mesh.make_data_mesh(cfg)`` gives a mesh, the
+    process group up): every rank loads the checkpoints and steps on its
+    block of each batch; rank 0 alone saves (the other ranks wait at a
+    barrier after each save) and validates the whole val split, which
+    gives the one-process result (the other ranks wait at a barrier and
+    return an empty ``eval_dict``).
 
     The loop's ``time`` meter is each iteration's wall time up to its
     metrics on the host (the step's device work included). Loaders and
@@ -325,11 +339,25 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
     from mopa_tpu_torch.data.utils.validate import validate
     from mopa_tpu_torch.train import trainer as trainer_mod
 
-    if int(cfg.TPU.DATA_PARALLEL) > 1:
-        raise trainer_mod._not_ported(
-            "M13", "data parallelism (TPU.DATA_PARALLEL {})".format(
-                cfg.TPU.DATA_PARALLEL))
+    mesh = mesh_mod.make_data_mesh(cfg)
+    if mesh is None and mesh_mod.world_size() > 1:
+        raise RuntimeError(
+            "TPU.DATA_PARALLEL {} under a process group of {} ranks: each "
+            "rank would train alone (set it to 0 or {})".format(
+                cfg.TPU.DATA_PARALLEL, mesh_mod.world_size(),
+                mesh_mod.world_size()))
+    lead = mesh is None or mesh.rank == 0
+
+    def sync():
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
+
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = mesh_mod.local_device()
+    if mesh is not None:
+        logger.info("Data-parallel mesh: {} ranks over {}".format(
+            mesh.size, mesh.backend))
     set_random_seed(cfg.RNG_SEED)
     models = trainer_mod.build_models(cfg, device=device)
     metric_2d = SegIoU(cfg.MODEL_2D.NUM_CLASSES, name="seg_iou_2d")
@@ -365,14 +393,15 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
                  else max_iteration + 1)
     has_trg = variant != "baseline" and len(cfg.DATASET_TARGET.TRAIN) > 0
     val_period = cfg.VAL.PERIOD
+    with_val = val_period > 0 and len(cfg.DATASET_TARGET.VAL) > 0
     val_loader = (build_dataloader(cfg, "val", "target")
-                  if val_period > 0 and len(cfg.DATASET_TARGET.VAL) > 0
-                  else None)
+                  if with_val and lead else None)
 
     with_pl = variant != "baseline" and cfg.TRAIN.XMUDA.lambda_pl > 0
     step_pre = trainer_mod.make_train_step(cfg, models, with_pl=with_pl,
                                            with_ema=False,
-                                           with_mopa=variant == "mopa")
+                                           with_mopa=variant == "mopa",
+                                           mesh=mesh)
     step_ema = None
 
     best_metric_name = "best_{}".format(cfg.VAL.METRIC)
@@ -382,7 +411,7 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
 
     # TensorBoard summaries (reference train_xmuda_mopa.py:159-163,615-620)
     summary_writer = None
-    if output_dir and cfg.TRAIN.SUMMARY_PERIOD > 0:
+    if output_dir and cfg.TRAIN.SUMMARY_PERIOD > 0 and lead:
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -399,17 +428,18 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
         """(source, target) device_prefetch streams of loaders at
         ``start``; before the EMA phase without the teacher's inputs."""
         src = device_prefetch(build_dataloader(
-            cfg, "train", "source", start_iteration=start, want_ema=False),
-            device, strip_ema=True)
+            cfg, "train", "source", start_iteration=start, want_ema=False,
+            **shard), device, strip_ema=True)
         trg = None
         if has_trg:
             trg = device_prefetch(build_dataloader(
                 cfg, "train", "target", start_iteration=start,
-                want_ema=ema), device, strip_ema=not ema,
+                want_ema=ema, **shard), device, strip_ema=not ema,
                 strip_keys=("seg_label",))
         return src, trg
 
     in_ema = start_iteration >= ema_start
+    shard = {} if mesh is None else {"mesh": mesh}  # each rank's block
     src_iter, trg_iter = streams(start_iteration, in_ema)
     eval_dict = {}
     end = time.time()
@@ -430,7 +460,7 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
                 if step_ema is None:
                     step_ema = trainer_mod.make_train_step(
                         cfg, models, with_pl=True, with_ema=True,
-                        with_mopa=True)
+                        with_mopa=True, mesh=mesh)
                 state, metrics = step_ema(state, batch_src, batch_trg)
             else:
                 state, metrics = step_pre(state, batch_src, batch_trg)
@@ -457,17 +487,20 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
                         summary_writer.add_scalar("train/" + name, meter.avg,
                                                   global_step=cur_iter)
 
-            if (ckpt_period > 0 and cur_iter % ckpt_period == 0) \
-                    or cur_iter == max_iteration:
-                ck2d.save("model_2d_{:06d}".format(cur_iter),
-                          iteration=cur_iter,
-                          **{best_metric_name: best_metric["2d"]})
-                ck3d.save("model_3d_{:06d}".format(cur_iter),
-                          iteration=cur_iter,
-                          **{best_metric_name: best_metric["3d"]})
+            if ((ckpt_period > 0 and cur_iter % ckpt_period == 0)
+                    or cur_iter == max_iteration):
+                if lead:
+                    ck2d.save("model_2d_{:06d}".format(cur_iter),
+                              iteration=cur_iter,
+                              **{best_metric_name: best_metric["2d"]})
+                    ck3d.save("model_3d_{:06d}".format(cur_iter),
+                              iteration=cur_iter,
+                              **{best_metric_name: best_metric["3d"]})
+                sync()
 
-            if val_loader is not None and (cur_iter % val_period == 0
-                                           or cur_iter == max_iteration):
+            is_val = with_val and (cur_iter % val_period == 0
+                                   or cur_iter == max_iteration)
+            if is_val and lead:
                 start_val = time.time()
                 val_metric_logger.reset()
                 eval_dict = validate(cfg, models, val_loader,
@@ -491,6 +524,8 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
                         if modality in ("3d", "xM"):
                             ck3d.save("best_val_{}_3d".format(modality),
                                       tag=False)
+            if is_val:
+                sync()  # the other ranks wait for rank 0's validation
             end = time.time()
     finally:
         _close(src_iter, trg_iter)
@@ -503,7 +538,7 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
                 modality.upper(), cfg.VAL.METRIC,
                 best_metric[modality] * 100, best_metric_iter[modality]))
 
-    if eval_dict and output_dir:
+    if eval_dict and output_dir and lead:
         out = iou_to_excel(eval_dict,
                            osp.join(output_dir, "val_class_iou.xlsx"),
                            list(eval_dict.keys()))
@@ -524,14 +559,30 @@ def require_cuda() -> None:
 def main_common(variant, description, default_cfg):
     """The train CLIs: parse the arguments, load the config, make the
     output directory and its log, check the losses the variant needs, and
-    :func:`train` on the card."""
+    :func:`train` on the card. Under ``torchrun`` the process group is
+    initialised first (``parallel.mesh.initialize_distributed``); rank 0
+    makes the output directory and names it to the others, and only rank 0
+    logs."""
+    import logging
+
     from mopa_tpu_torch.common.logger import get_logger
 
     args = parse_args(description, default_cfg)
     require_cuda()
+    mesh_mod.initialize_distributed()
+    rank = dist.get_rank() if dist.is_initialized() else 0
     cfg = load_cfg(args)
-    output_dir, run_name, log_file = prepare_output_dir(cfg, args)
-    logger = get_logger(output=log_file, abbrev_name=args.task)
+    where = [None]
+    if rank == 0:
+        where = [prepare_output_dir(cfg, args)]
+    if dist.is_initialized():
+        dist.broadcast_object_list(where, src=0)
+    output_dir, run_name, log_file = where[0]
+    if rank == 0:
+        logger = get_logger(output=log_file, abbrev_name=args.task)
+    else:  # the other ranks log nothing (warnings reach stderr)
+        logger = logging.getLogger("mopa_tpu_torch.rank{}".format(rank))
+        logger.propagate = False
     logger.info("{} devices available".format(torch.cuda.device_count()))
     logger.info(args)
     logger.info("Loaded configuration file {:s}".format(args.config_file))

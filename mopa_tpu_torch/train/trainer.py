@@ -25,10 +25,20 @@ point features) or SalsaNext (range images, no plan: its source and target
 forwards run back to back, one batch norm updating its running statistics
 in turn). With ``TRAIN.DEPTH_PRED`` the 2D net's depth head is trained by
 the RMSE against the source's ``depth_label`` (weight
-``TRAIN.DEPTH_PRED_COE.lambda_dp_src``). Multi-card data parallelism is not
-ported and raises ``NotImplementedError`` naming its ROADMAP item; the
-combinations the JAX package cannot run either raise as noted in
-:func:`make_train_step`.
+``TRAIN.DEPTH_PRED_COE.lambda_dp_src``). The combinations the JAX package
+cannot run either raise as noted in :func:`make_train_step`.
+
+Data parallelism (``mesh``, a ``parallel.mesh.DataMesh``) follows the JAX
+package's ``shard_map``-ed step: every rank holds the whole train state and
+steps on its own block of the batch; after the backward the gradients and
+the updated batch-norm running statistics of each net are averaged across
+the ranks, one flat bucket per net and kind, the float metrics averaged and
+the integer ones (the confusion matrices, ``vgi_inserted``) summed, before
+the optimizers run. Batch norm normalises with each rank's own statistics,
+and the EMA teacher runs per rank with no collective. Every rank's
+generator starts from the same seed and draws the same shapes, so dropout,
+the teacher's fusion draw and device VGI's draws agree across ranks, as
+JAX's replicated key makes them.
 
 With ``MODEL_2D.<TYPE>.pretrained`` (the default) :func:`create_train_state`
 loads the ImageNet ResNet34 encoder from the file
@@ -58,25 +68,22 @@ from mopa_tpu_torch.models.build import (build_model_2d, build_model_3d,
                                          plan_levels)
 from mopa_tpu_torch.models.metric import confusion_matrix
 from mopa_tpu_torch.models.scn_unet import (HOST_PLAN_KEYS, UNetPlan,
+                                            build_unet_plan,
                                             build_unet_plan_batched,
                                             capacity_schedule, concat_plans,
                                             plan_from_host_arrays)
 from mopa_tpu_torch.ops import mixmatch
+from mopa_tpu_torch.parallel import mesh as mesh_mod
 from mopa_tpu_torch.train.common import decode_batch, is_ema_key
 
 # Names of the profiler ranges that mark the train step's stages, in order.
 TRAIN_STAGES = ("train/decode", "train/vgi", "train/plan", "train/net2d",
-                "train/net3d", "train/losses", "train/backward", "train/optim",
-                "train/ema")
+                "train/net3d", "train/losses", "train/backward",
+                "train/allreduce", "train/optim", "train/ema")
 # The EMA teacher's stages, which run before the train step's in the EMA
 # phase.
 TEACHER_STAGES = ("teacher/decode", "teacher/plan", "teacher/net2d",
                   "teacher/net3d", "teacher/refine")
-
-
-def _not_ported(item: str, what: str) -> NotImplementedError:
-    return NotImplementedError("not ported yet (ROADMAP {}): {}".format(
-        item, what))
 
 
 def _num_levels(cfg) -> int:
@@ -104,12 +111,24 @@ def _capacities(cfg, n_points: int):
 
 
 def build_plan_from_batch(cfg, coords: torch.Tensor, valid_flat: torch.Tensor,
-                          sample_size: int,
-                          sample_domains=None) -> UNetPlan:
+                          sample_size: int | None,
+                          sample_domains=None,
+                          batch_idx: torch.Tensor | None = None) -> UNetPlan:
     """Voxel plan for a flat (S*P, 3) batch of S scans of P points each,
     built per sample and stitched into the reference's flat layout. The
     points are sorted here whatever their order. ``sample_domains`` (S,)
-    gives each scan's batch-norm domain for a fused forward."""
+    gives each scan's batch-norm domain for a fused forward.
+
+    With ``sample_size`` None the reference's monolithic plan of all the
+    points (:func:`build_unet_plan`, ``nbr`` levels) over ``batch_idx``
+    (each point's scan), capacities scheduled from the point count."""
+    if sample_size is None:
+        if batch_idx is None:
+            raise ValueError("the monolithic plan needs batch_idx")
+        return build_unet_plan(coords, batch_idx, valid_flat,
+                               _num_levels(cfg),
+                               capacities=_capacities(cfg, coords.shape[0]),
+                               batch_domains=sample_domains)
     p = int(sample_size)
     s = coords.shape[0] // p
     return build_unet_plan_batched(coords.reshape(s, p, 3),
@@ -341,7 +360,10 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
                     with_ema: bool = False, with_mopa: bool = True,
                     mesh=None):
     """Return ``train_step(state, batch_src, batch_trg) -> (state,
-    metrics)`` on the models' device.
+    metrics)`` on the models' device; with ``mesh`` (a
+    ``parallel.mesh.DataMesh``) this rank's step over its block of the
+    batch, its gradients, batch-norm statistics and metrics reduced across
+    the mesh (module docstring).
 
     ``with_pl``: pseudo-label CE on the target (``pseudo_label_2d/3d``);
     ``with_ema`` (needs ``with_pl``): the EMA phase, where a teacher labels
@@ -371,8 +393,6 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     pc_mm = cfg.TRAIN.PC_MM
     if with_ema and not with_pl:
         raise ValueError("EMA teacher implies pseudo-label CE (with_pl)")
-    if mesh is not None:
-        raise _not_ported("M13", "data parallelism over a mesh")
     with_vgi = with_mopa and float(pc_mm.lambda_pc_mm) > 0
     is_range = plan_levels(cfg) is None  # a range net: no voxel plan
     if is_range and (with_vgi or with_ema):
@@ -503,8 +523,8 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         return total, metrics
 
     def train_step(state: TrainState, batch_src: dict, batch_trg: dict):
-        (decode, vgi_r, plan_r, net2d, net3d, loss_r, backward, optim,
-         ema) = TRAIN_STAGES
+        (decode, vgi_r, plan_r, net2d, net3d, loss_r, backward, allreduce,
+         optim, ema) = TRAIN_STAGES
         model_2d.train()
         model_3d.train()
         with record_function(decode):
@@ -550,6 +570,9 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
                                     b, p)
         with record_function(backward):
             total.backward()
+        if mesh is not None:
+            with record_function(allreduce), torch.no_grad():
+                metrics = sync_replicas(mesh, state, metrics)
         with record_function(optim):
             state.opt_2d.step()
             state.opt_3d.step()
@@ -599,6 +622,27 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     step_with_teacher.teacher_step = teacher_step
     step_with_teacher.student_step = train_step
     return step_with_teacher
+
+
+def sync_replicas(mesh, state: TrainState, metrics: dict) -> dict:
+    """The collectives of a data-parallel step, after its backward (JAX's
+    ``pmean`` / ``psum`` in ``shard_map``): each net's gradients, then each
+    net's floating batch-norm buffers, averaged as one flat bucket apiece;
+    the float metrics averaged and the integer ones summed, one bucket per
+    dtype. Returns the reduced metrics (detached copies)."""
+    for params in (state.params_2d, state.params_3d):
+        mesh_mod.all_reduce(mesh, [p.grad for p in params.values()
+                                   if p.grad is not None], average=True)
+    for stats in (state.batch_stats_2d, state.batch_stats_3d):
+        mesh_mod.all_reduce(mesh, [b for b in stats.values()
+                                   if b.is_floating_point()], average=True)
+    out = {k: v.detach().clone() for k, v in metrics.items()}
+    buckets = {}
+    for v in out.values():
+        buckets.setdefault(v.dtype, []).append(v)
+    for dtype, tensors in buckets.items():
+        mesh_mod.all_reduce(mesh, tensors, average=dtype.is_floating_point)
+    return out
 
 
 # the torch optimizers' per-parameter state behind each optax slot

@@ -44,7 +44,8 @@ jit it (the resumed runs overwrite its values).
 * The port alone: ``train()`` from scratch on the CPU (finite losses, the
   checkpoint files, the ring, the xlsx, no loader or prefetch thread left,
   2 pool threads per loader), the baseline and xMUDA variants for 2
-  iterations, ``TPU.DATA_PARALLEL`` > 1 raising, ``parse_args`` /
+  iterations, ``TPU.DATA_PARALLEL`` > 1 without a process group raising,
+  ``parse_args`` /
   ``load_cfg`` equal to JAX's, and each CLI's ``main`` raising before it
   builds anything when no GPU is visible.
 """
@@ -486,10 +487,14 @@ def test_other_variants_train(tmp_path, variant):
 
 
 def test_data_parallel_raises(tmp_path):
+    """``TPU.DATA_PARALLEL`` 2 without a process group raises
+    ``parallel.mesh``'s own error before anything is built (data-parallel
+    training itself is held by ``test_torch_data_parallel_train.py``)."""
     _, pcfg = smoke_cfgs(**OPTS, **{"TPU.DATA_PARALLEL": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP M13"):
+    with pytest.raises(RuntimeError, match="none is initialised"):
         common.train(pcfg, _logger("port"), str(tmp_path), "run", "mopa",
                      device="cpu")
+    assert os.listdir(tmp_path) == []
 
 
 ARGVS = [["--cfg", SMOKE, "TRAIN.BATCH_SIZE", "4", "OUTPUT_DIR", "out"],

@@ -23,9 +23,10 @@ on the other side of the kink moves the gradient of every encoder tensor by
   second to 1e-4.
 * (c) The port sorts points itself: the step on shuffled scans gives the
   losses of the step on sorted scans.
-* A device mesh (M13), which the port does not have yet, raises
-  ``NotImplementedError`` naming its ROADMAP item; the other 3D backbones
-  and the depth head carry the JAX package's flax variables.
+* A device mesh (M13, which raised here before data parallelism was
+  ported) builds and steps: a one-rank gloo group's mesh (its numbers are
+  held by ``test_torch_data_parallel.py``); the other 3D backbones and the
+  depth head carry the JAX package's flax variables.
 """
 
 import flax.linen
@@ -306,19 +307,35 @@ def test_step_on_shuffled_points():
 
 @pytest.mark.parametrize("case,item", [("backbone", "M14"), ("mesh", "M13"),
                                        ("depth", "M14")])
-def test_unported_paths_raise(case, item):
-    """A device mesh (M13) still raises. The other 3D backbones and the
-    depth head (M14, which raised here before they were ported) now build:
-    the port's nets carry exactly the flax variables, names and shapes, of
-    the JAX package's nets from the same config (``jax.eval_shape`` of its
-    init), and their step builds. Their numbers are held by
-    ``test_torch_backbone_step.py``."""
+def test_unported_paths_raise(case, item, tmp_path):
+    """The paths that raised here before they were ported now build. A
+    device mesh (M13): the step over a one-rank gloo group's mesh takes a
+    step with its 6 collectives (its numbers are held by
+    ``test_torch_data_parallel.py``). The other 3D backbones and the depth
+    head (M14): the port's nets carry exactly the flax variables, names and
+    shapes, of the JAX package's nets from the same config
+    (``jax.eval_shape`` of its init), and their step builds. Their numbers
+    are held by ``test_torch_backbone_step.py``."""
     if case == "mesh":
+        import torch.distributed as dist
+
+        from mopa_tpu_torch.parallel import mesh as mesh_mod
+
         pcfg = _cfg(port_base_cfg)
         models = port_trainer.build_models(pcfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-            port_trainer.make_train_step(pcfg, models, with_pl=True,
-                                         mesh=object())
+        state = port_trainer.create_train_state(pcfg, models)
+        dist.init_process_group("gloo", init_method="file://{}".format(
+            tmp_path / "store"), rank=0, world_size=1)
+        try:
+            mesh = mesh_mod.data_mesh()
+            step = port_trainer.make_train_step(pcfg, models, with_pl=True,
+                                                mesh=mesh)
+            state, metrics = step(state, _batch(1, False), _batch(2, True))
+        finally:
+            dist.destroy_process_group()
+        assert state.step == 1 and mesh.size == 1
+        assert mesh.collectives == 6
+        assert all(torch.isfinite(v.float()).all() for v in metrics.values())
         return
     variants = ([{"MODEL_3D.TYPE": "SPVCNN"}, {"MODEL_3D.TYPE": "SalsaNext"}]
                 if case == "backbone" else [{"TRAIN.DEPTH_PRED": True}])
