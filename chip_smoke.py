@@ -10,8 +10,10 @@ Phases, in order; any failure exits non-zero:
    name and power limit, the build seconds and the compiler's register/spill
    report. Per kernel of the three libraries, the registers, spills and
    stack frame (ptxas) and the tensor-core MMA instructions (``HMMA``/
-   ``HGMMA`` in ``cuobjdump -sass``): every tensor-core kernel (K1 and
-   ``d_feats``, ``d_w``, P2) must hold MMAs and spill nothing.
+   ``HGMMA`` in ``cuobjdump -sass``, read once phase 14's worker has
+   started): every tensor-core kernel (K1 and ``d_feats``, ``d_w``, in
+   bfloat16 and in float32 as 3xTF32; P2) must hold MMAs and spill
+   nothing. The host plan builder compiles beside the kernels.
 2. The gather probes at full size (``mopa_tpu_torch.tools.gather_micro``:
    24 x 16,384 slots, 48 bf16 lanes, 8 taps, Cout 16), with launch counts
    reset just before and read just after: P1 ``row_gather`` must equal its
@@ -32,10 +34,14 @@ Phases, in order; any failure exits non-zero:
    on that plan. float32 to atol = rtol = 1e-4 (``d_w``:
    max|err| <= 1e-4 * max|ref|), bfloat16 to max|err| <= 2e-2 * max|ref|.
    One ``d_w`` shape runs twice and must give the same bits. bfloat16 runs
-   the tensor-core route, float32 the CUDA-core route (``sparse_conv_cuda.
-   route_for``). Time each with CUDA events (median of 20 launches after a
-   warm-up), beside the twin, and compute the card's bound for the same work
-   and the share of it reached (``bound_share`` = bound / time).
+   the tensor-core route, float32 the 3xTF32 tensor-core route
+   (``sparse_conv_cuda.route_for``). Time each with CUDA events (median of
+   20 launches after a warm-up), beside the twin (median of 5), and
+   compute the card's bound for the same work and the share of it reached
+   (``bound_share`` = bound / time): bytes at 3.35 TB/s against operations
+   at 989 TFLOP/s (bfloat16) or 495 / 3 = 165 TFLOP/s (float32 as 3xTF32),
+   float32 rows also against the CUDA cores' 67 TFLOP/s
+   (``bound_share_67``).
 4. The eval step at full width (UNetResNet34 + SCN m=16, 7 planes, 10 classes,
    dual heads, 302x480 images, 16,384-point budget) in bfloat16: 3 requests
    of batch 1, then 1 of batch 8, with launch counts reset just before and
@@ -212,7 +218,7 @@ Phases, in order; any failure exits non-zero:
    (the learnable synthetic set, float32, the EMA switch at 2,100), with
    launch counts reset just before and read just after: every iteration
    launches K1 14 (28 in the EMA phase), ``d_feats`` 13 and ``d_w`` 14, all
-   on the CUDA-core route, and the validation K1 14 per batch; val mIoU
+   on the 3xTF32 route, and the validation K1 14 per batch; val mIoU
    must clear the gate (2D 0.70, 3D 0.50, xM 0.70); printed: the mIoUs,
    the 3D per-class IoU, the 3D train IoU at 500 / 1000 / 2000 / 3000
    beside ``CONVERGENCE_r05.json``'s, the median iteration ms before and
@@ -255,8 +261,11 @@ Phases, in order; any failure exits non-zero:
    batched plan's, argmax agreement >= 0.999, K1 14 launches on the wide
    form and none on the others; each form's plan-build and forward ms.
    Then print the kernels line (JSON; ``route`` is the build route,
-   ``cuda``, and ``kernel_route`` the conv kernels' route on the main path,
-   whose launches are phase 7's), the card line, then ``{"ok": true,
+   ``cuda``, and ``kernel_route`` the conv kernels' route: bfloat16 on the
+   main path, whose launches are phase 7's, and the float32 route as
+   kernels of their own, ``[3xtf32]``, whose launches are phase 14 (a)'s
+   and whose times are phase 3's float32 rows), the card line, then
+   ``{"ok": true,
    "device": {...}}`` as the last line.
 
 Weights are random from a seed. Details go to ``chiprun_out/chip_smoke.json``.
@@ -276,6 +285,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack
 from pathlib import Path
 from unittest import mock
@@ -288,6 +298,9 @@ NUM_CLASSES = 10
 TRAIN_BATCH = 8          # TRAIN.BATCH_SIZE of xmuda_pl_mopa.yaml
 M, NUM_PLANES = 16, 7
 TIMED_LAUNCHES = 20
+# a plain twin's timed calls: the twin is the yardstick of correctness,
+# not of speed, and phase 3 runs before phase 14's worker starts
+TWIN_TIMED_LAUNCHES = 5
 WARM_REQUESTS = 5
 COUNTED_STEPS = 3
 EMA_COUNTED_STEPS = 2
@@ -448,6 +461,8 @@ def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
     for dtype in (torch.float32, torch.bfloat16):
         dt_name = str(dtype).split(".")[-1]
         tag = "{} {} {}".format(plan_name, name, dt_name)
+        # float32 runs as 3xTF32: three TF32 MMAs a product
+        peak = "float32_3xtf32" if dtype == torch.float32 else "bfloat16"
         esz = torch.tensor([], dtype=dtype).element_size()
         # batch norm writes its bias into padding rows: no input row is
         # zero, padding included
@@ -495,12 +510,20 @@ def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
                 "max_abs_err": err, "max_abs_ref": ref_max,
                 "tolerance": tol,
                 "ms": gm.median_ms(kern, timed, device),
-                "plain_ms": gm.median_ms(plain, timed, device),
+                "plain_ms": gm.median_ms(
+                    plain, min(timed, TWIN_TIMED_LAUNCHES), device),
                 "bytes_ms": nbytes / gm.HBM_BYTES_PER_S * 1e3,
-                "ops_ms": 2 * cin * cout * pairs / gm.PEAK_FLOPS[dt_name]
+                "ops_ms": 2 * cin * cout * pairs / gm.PEAK_FLOPS[peak]
                 * 1e3}
             row["bound_share"] = max(row["bytes_ms"], row["ops_ms"]) \
                 / row["ms"]
+            if dtype == torch.float32:
+                # against the CUDA cores' rate, the float32 rows' bound
+                # before 3xTF32
+                row["ops_ms_67"] = 2 * cin * cout * pairs \
+                    / gm.PEAK_FLOPS["float32"] * 1e3
+                row["bound_share_67"] = max(row["bytes_ms"],
+                                            row["ops_ms_67"]) / row["ms"]
             if kernel != K2_DW:
                 # the dense MMA work of the staged (tile, column) blocks:
                 # 3 slots x all channels, pairs or not, per column block
@@ -509,7 +532,7 @@ def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
                          for c0, c1 in scc.column_blocks(out_width)]
                 row["tile_ops_ms"] = (2 * col_tiles * scc.TILE_M
                                       * sum(kp * np_ for kp, np_ in tiles)
-                                      / gm.PEAK_FLOPS["bfloat16"] * 1e3)
+                                      / gm.PEAK_FLOPS[peak] * 1e3)
             if kernel == K2_DW and name == "l0_conv2":
                 again = kern()
                 row["same_bits_on_rerun"] = bool(torch.equal(got, again))
@@ -519,8 +542,11 @@ def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
             print("{kernel} {plan} {conv} ({cin},{cout}) {dtype} [{route}, "
                   "{launches_per_call} launch(es) a call]: {ms:.4f} ms "
                   "(plain {plain_ms:.4f} ms, bound {b:.4f} ms, share "
-                  "{bound_share:.3f}) max|err| {max_abs_err:.3g}".format(
-                      b=max(row["bytes_ms"], row["ops_ms"]), **row),
+                  "{bound_share:.3f}{s67}) max|err| {max_abs_err:.3g}".format(
+                      b=max(row["bytes_ms"], row["ops_ms"]),
+                      s67=", at 67 TFLOP/s {:.3f}".format(
+                          row["bound_share_67"]) if "bound_share_67" in row
+                      else "", **row),
                   flush=True)
     scc.reset_launch_counts()
     return rows
@@ -528,20 +554,35 @@ def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
 
 def tensor_core_routes(tag: str) -> dict:
     """The conv kernels' launch counts by route since the last reset; fails
-    if a bfloat16 path sent any of them to the CUDA-core route."""
+    if a bfloat16 path sent any of them to the float32 route."""
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
 
     routes = {k: dict(v) for k, v in scc.routes.items()}
-    off = {k: v for k, v in routes.items() if v[scc.CUDA_CORE]}
+    off = {k: v for k, v in routes.items() if v[scc.TF32X3]}
     if off:
         fail("{} launched conv kernels off the tensor-core route: {}".format(
             tag, off))
     return routes
 
 
+def float32_routes(tag: str) -> dict:
+    """The conv kernels' launch counts by route since the last reset; fails
+    unless a float32 path launched K1 and sent every conv launch to the
+    3xTF32 route."""
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+
+    routes = {k: dict(v) for k, v in scc.routes.items()}
+    off = {k: v for k, v in routes.items() if v[scc.TENSOR_CORE]}
+    if off or not routes[K1][scc.TF32X3]:
+        fail("{} launched conv kernels off the 3xTF32 route (or no K1): {}"
+             .format(tag, routes))
+    return routes
+
+
 # a kernel of the three libraries and its template arguments (int, then an
 # optional bool) in a mangled name
-_KERNEL_NAME = re.compile(r"(subm_conv_(?:dw_)?(?:(?:f32|tc)_kernel|reduce)"
+_KERNEL_NAME = re.compile(r"(subm_conv_(?:dw_)?(?:(?:f32_)?tc_kernel|reduce"
+                          r"|f32_pack)"
                           r"|row_gather_kernel|gather_gemm_tc_kernel)"
                           r"(?:ILi(\d+)E(?:Lb([01])E)?)?")
 
@@ -573,8 +614,8 @@ def kernel_report() -> dict:
     sources): registers, spilled bytes and stack frame (ptxas's report, kept
     beside each library) and the tensor-core MMA instructions
     (``HMMA``/``HGMMA``) in its SASS (``cuobjdump -sass``). Fails if a
-    tensor-core kernel (K1 and ``d_feats``, ``d_w``, P2) holds no MMA or
-    spills."""
+    tensor-core kernel (K1 and ``d_feats``, ``d_w``, each in bfloat16 and
+    in float32 as 3xTF32; P2) holds no MMA or spills."""
     from mopa_tpu_torch.ops import sparse_conv_cuda as scc
 
     tool = _cuobjdump()
@@ -781,10 +822,15 @@ def profile_call(fn, stages, top: int = 12) -> dict:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     names = sorted(by_name.items(), key=lambda kv: -kv[1])
+    conv = {}  # device ms of the conv libraries' kernels, by kernel
+    for name, ns in names:
+        kname = _kernel_name(name)
+        if kname is not None and kname.startswith("subm_conv"):
+            conv[kname] = conv.get(kname, 0.0) + ns / 1e6
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e6,
             "device_idle_share": 1.0 - busy / 1e3 / wall_us,
             "device_kernel_ms_total": sum(by_name.values()) / 1e6,
-            "stages": out_stages,
+            "conv_kernels_ms": conv, "stages": out_stages,
             "top_device_ms": [[n[:90], ns / 1e6] for n, ns in names[:top]]}
 
 
@@ -1011,6 +1057,7 @@ def f32_step_three_ways(device, ema_xm_prob=None, vgi: bool = False) -> dict:
     shipped MoPA step: VGI on, 1 cat scan, host-built plans."""
     import torch
 
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
     from mopa_tpu_torch.train import trainer
 
     ema = ema_xm_prob is not None
@@ -1044,8 +1091,9 @@ def f32_step_three_ways(device, ema_xm_prob=None, vgi: bool = False) -> dict:
                 grads[net + ":" + name] = prm.grad.detach().float().cpu()
         return _losses(metrics), grads
 
+    scc.reset_launch_counts()
     kern_l, kern_g = run(device, False)
-    res = {"losses": kern_l}
+    res = {"losses": kern_l, "routes": float32_routes("f32 train step")}
     for tag, dev, twins in (("vs_plain", device, True), ("vs_cpu", "cpu",
                                                          False)):
         ref_l, ref_g = run(dev, twins)
@@ -2403,14 +2451,22 @@ def kernel_entry(kernel: str, rows: list, launches: int, source: str,
     ops_ms = sum(r["ops_ms"] for r in rows)
     ms = sum(r["ms"] for r in rows)
     bound_ms = sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows)
-    return {"name": kernel, "route": "cuda",
-            "kernel_route": rows[0]["route"], "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": ms, "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bound_share": bound_ms / ms, "library_ms": None}
+    entry = {"name": kernel, "route": "cuda",
+             "kernel_route": rows[0]["route"], "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": ms, "plain_ms": sum(r["plain_ms"] for r in rows),
+             "bound_ms": bound_ms,
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "bound_share": bound_ms / ms, "library_ms": None}
+    if "bound_share_67" in rows[0]:
+        # the float32 route, a kernel of its own: its bound at 165 TFLOP/s
+        # (3xTF32), and at the CUDA cores' 67 beside it
+        entry["name"] = "{} [3xtf32]".format(kernel)
+        entry["bound_ms_67"] = sum(max(r["bytes_ms"], r["ops_ms_67"])
+                                   for r in rows)
+        entry["bound_share_67"] = entry["bound_ms_67"] / ms
+    return entry
 
 
 VGI_AGREE_MIN = 0.999  # device VGI and the ground fit, card vs CPU
@@ -3060,8 +3116,10 @@ def backbone_step(cfg, src, trg, device, tag: str, with_pl: bool = True,
 
 def spvcnn_card_vs_cpu(device) -> dict:
     """The float32 SPVCNN step of 1 + 1 scans on the card (K1 / K2 on the
-    CUDA-core route) and in the port on the CPU (the plain twins), the same
-    weights, dropout off: every loss within 1e-3 (relative)."""
+    3xTF32 route, every launch) and in the port on the CPU (the plain
+    twins), the same weights, dropout off: every loss within 1e-3
+    (relative)."""
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
     from mopa_tpu_torch.train import trainer
 
     cfg = backbone_cfg("SPVCNN", "float32", batch_size=1)
@@ -3073,14 +3131,17 @@ def spvcnn_card_vs_cpu(device) -> dict:
         state = trainer.create_train_state(cfg, models)
         step = trainer.make_train_step(cfg, models, with_pl=True,
                                        with_mopa=False)
+        scc.reset_launch_counts()
         losses[str(dev)] = _losses(step(state, src, trg)[1])
+        if dev == device:
+            routes = float32_routes("SPVCNN f32 step")
     card, cpu = losses[str(device)], losses["cpu"]
     worst = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
     print("SPVCNN f32 1 + 1 step, card vs CPU: {}; largest relative "
           "difference {:.3g}".format(losses, worst), flush=True)
     if set(card) != set(cpu) or not worst <= 1e-3:
         fail("SPVCNN f32 step, card vs CPU: {}".format(losses))
-    return {"losses": losses, "max_rel_diff": worst}
+    return {"losses": losses, "max_rel_diff": worst, "routes": routes}
 
 
 def backbone_validate(cfg, models, tag: str) -> dict:
@@ -3138,11 +3199,19 @@ def backbone_phase(device, report: dict, mopa_target) -> dict:
                                           "SPVCNN step bf16 8+8")
     routes = out["spvcnn"]["routes"]
     for name in (K1, K2_DFEATS, K2_DW):
-        if not (routes[name]["cuda-tensorcore"] > 0 and routes[name]["cuda"]
-                > 0):
+        if not (routes[name][scc.TENSOR_CORE] > 0
+                and routes[name][scc.TF32X3] > 0):
             fail("the SPVCNN step ran {} on routes {}: the bf16 encoder "
                  "and the f32 decoder each need theirs".format(name,
                                                                routes[name]))
+    conv_ms = out["spvcnn"]["profile"].get("conv_kernels_ms", {})
+    out["spvcnn"]["f32_conv_device_ms"] = sum(
+        ms for k, ms in conv_ms.items() if "_f32_" in k)
+    print("SPVCNN traced step: the float32 conv kernels take {:.2f} of {} "
+          "busy device ms; conv kernels by name {}".format(
+              out["spvcnn"]["f32_conv_device_ms"],
+              out["spvcnn"]["profile"].get("device_busy_ms"), conv_ms),
+          flush=True)
     out["spvcnn"]["validate"] = backbone_validate(cfg, models, "SPVCNN")
     del models
     torch.cuda.empty_cache()
@@ -3466,6 +3535,7 @@ def dp_f32_card_vs_cpu(mesh, device) -> dict:
     import torch
     import torch.distributed as dist
 
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
     from mopa_tpu_torch.parallel import mesh as mesh_mod
     from mopa_tpu_torch.train import trainer
 
@@ -3501,7 +3571,9 @@ def dp_f32_card_vs_cpu(mesh, device) -> dict:
                 mean[net + ":" + k] = params[k].grad.detach().float().cpu()
         return _losses(metrics), local, mean
 
+    scc.reset_launch_counts()
     card_l, card_local, card_mean = run(device)
+    routes = float32_routes("rank {} f32 step".format(mesh.rank))
     cpu_l, cpu_local, cpu_mean = run("cpu")
     loss_rel = {k: abs(card_l[k] - cpu_l[k]) / max(abs(cpu_l[k]), 1e-12)
                 for k in cpu_l}
@@ -3534,7 +3606,7 @@ def dp_f32_card_vs_cpu(mesh, device) -> dict:
             worst[kind] = max(worst[kind], err / max(bound, 1e-30))
     return {"max_loss_rel": max(loss_rel.values()),
             "max_grad_rel_local": worst["local"],
-            "max_grad_rel_mean": worst["mean"]}
+            "max_grad_rel_mean": worst["mean"], "routes": routes}
 
 
 def dp_train(mesh, device, out_dir: str) -> dict:
@@ -3760,9 +3832,10 @@ def plan_forms_check(batch_8, device) -> dict:
             (res, fwd_ms, peak) = timed_call(model, feats, plan)
         k1 = scc.launches[K1]
         want = len(conv_shapes()) if name == "wide" else 0
-        if k1 != want:
-            fail("plan form {}: K1 launched {} times, expected {}".format(
-                name, k1, want))
+        if k1 != want or scc.routes[K1][scc.TF32X3] != want:
+            fail("plan form {}: K1 launched {} times (routes {}), expected "
+                 "{} on the 3xTF32 route".format(name, k1, scc.routes[K1],
+                                                 want))
         logits[name] = res["seg_logit"].float()[valid]
         out[name] = {"plan_ms": build_ms, "forward_ms": fwd_ms,
                      "peak_mib": peak, "k1_launches": k1,
@@ -3907,7 +3980,7 @@ def convergence_run(device) -> tuple:
     n = len(conv_shapes())
     val_batches = math.ceil(cfg.DATASET_TARGET.SyntheticSCN.length
                             / cfg.VAL.BATCH_SIZE)
-    # per iteration, each phase: every conv launch on the CUDA-core route
+    # per iteration, each phase: every conv launch on the 3xTF32 route
     # (COMPUTE_DTYPE float32), the teacher's forward doubling K1's
     per_iter = {False: {K1: n, K2_DFEATS: n - 1, K2_DW: n},
                 True: {K1: 2 * n, K2_DFEATS: n - 1, K2_DW: n}}
@@ -3916,7 +3989,7 @@ def convergence_run(device) -> tuple:
         fail("the convergence run stepped {} times, {} in the EMA phase"
              .format(len(phases), sum(phases)))
     for i, (ema, _, routes) in enumerate(probe.steps):
-        want = {k: {scc.CUDA_CORE: v, scc.TENSOR_CORE: 0}
+        want = {k: {scc.TF32X3: v, scc.TENSOR_CORE: 0}
                 for k, v in per_iter[ema].items()}
         if routes != want:
             fail("convergence iteration {} launched {}, want {}".format(
@@ -3950,7 +4023,7 @@ def convergence_run(device) -> tuple:
             for i, prof in probe.profiles.items()},
         "launches_per_iteration": {"pre_ema": per_iter[False],
                                    "ema": per_iter[True],
-                                   "route": scc.CUDA_CORE},
+                                   "route": scc.TF32X3},
         "val_3d_class_iou": {name: float(v) for name, v in zip(
             ev3.class_names, ev3.class_iou)},
         "train_iou_3d": {str(i): lines.train_iou.get(i)
@@ -3969,7 +4042,7 @@ def convergence_run(device) -> tuple:
               list(CONV_TRAJECTORY), out["train_iou_3d"],
               "CONVERGENCE_r05.json", out["reference_train_iou_3d"],
               out["iteration_median_ms"]["pre_ema"],
-              out["iteration_median_ms"]["ema"], wall_s, scc.CUDA_CORE,
+              out["iteration_median_ms"]["ema"], wall_s, scc.TF32X3,
               per_iter[False], per_iter[True]), flush=True)
     for name, prof in out["traced_steps"].items():
         if prof["wall_ms"] is None:
@@ -4268,13 +4341,16 @@ def main() -> None:
         report["phase_s"][name] = now - last[0]
         last[0] = now
 
-    # -- phase 1: build
-    t0 = time.perf_counter()
-    scc.build()
-    report["build_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native_loader.build()
-    report["host_plan_build_s"] = time.perf_counter() - t0
+    # -- phase 1: build (the host plan builder beside the kernels)
+    def seconds(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(seconds, native_loader.build)
+        report["build_s"] = seconds(scc.build)
+        report["host_plan_build_s"] = host_build.result()
     report["ptxas"] = {}
     for name in scc.SOURCES:
         log = scc.library_path(name).with_suffix(".log")
@@ -4285,9 +4361,6 @@ def main() -> None:
                                            report["host_plan_build_s"]))
     for text in report["ptxas"].values():
         print(text.strip())
-    report["kernel_build"] = kernel_report()
-    print("kernels (registers, spilled bytes, stack frame, tensor-core MMA "
-          "instructions): {}".format(report["kernel_build"]), flush=True)
     lap("build")
 
     # -- data: 3 single-scan requests, one batch of 8 scans, and the fused
@@ -4339,6 +4412,11 @@ def main() -> None:
     # convergence run is host-bound for ~12 minutes, and runs beside
     # phases 4-13 (its results are read after phase 13)
     worker = start_offline_worker()
+    # phase 1's SASS report, off the worker's critical path
+    report["kernel_build"] = kernel_report()
+    print("kernels (registers, spilled bytes, stack frame, tensor-core MMA "
+          "instructions): {}".format(report["kernel_build"]), flush=True)
+    lap("sass_report")
 
     # -- phase 4: the eval step
     report["eval"] = eval_phase(batches_1, batch_8, device)
@@ -4425,11 +4503,15 @@ def main() -> None:
     kernels = [kernel_entry(name, main_rows(name), train_launches[name],
                             source, replaces)
                for name, source, replaces in conv_kernels]
-    # the float32 (CUDA-core) route at the same shapes, checked and timed
-    # in phase 3 but off the main path: in the JSON report only
+    # the float32 (3xTF32) route at the same shapes, checked and timed in
+    # phase 3, as kernels of their own: their path is the float32
+    # convergence run of phase 14 (a), whose launches they carry
+    f32_launches = report["offline"]["convergence"]["launches"]
     report["kernels_f32"] = [
-        kernel_entry(name, main_rows(name, "float32"), 0, source, replaces)
+        kernel_entry(name, main_rows(name, "float32"), f32_launches[name],
+                     source, replaces)
         for name, source, replaces in conv_kernels]
+    kernels += report["kernels_f32"]
     probes = report["gather"]
     for name, key, line, library_ms in (
             (P1, "gather", 83, probes["library"]["index_select_ms"]),

@@ -62,169 +62,43 @@
 //     rows.
 //
 // * float32 (the checking paths: chip_smoke's f32 rows and its float32
-//   1 + 1 steps; and SPVCNN's decoder, float32 as in the JAX package):
-//   subm_conv_f32_kernel, CUDA cores, so float32 stays within
-//   1e-4 of the plain twin (TF32 would not). A CTA owns 64 voxels x all Cout
-//   in registers, resolves its voxels' 27 source rows, and per offset that
-//   any voxel has stages the gathered rows and the weight slice in 32-channel
-//   chunks and runs an FMA loop. The mirror mode reads W' in place.
+//   1 + 1 steps; the convergence run; SPVCNN's decoder, float32 as in the
+//   JAX package): subm_conv_f32_tc_kernel, tensor cores in 3xTF32, so
+//   float32 stays within 1e-4 of the plain twin (TF32 alone keeps 11 bits
+//   of 24 and would not). Each operand is split into a TF32 high and low
+//   part, and each product accumulates lo*hi + hi*lo + hi*hi in float32
+//   through mma.sync m16n8k8 (tensor_core.cuh): three MMAs where bf16 has
+//   one, on operands twice as wide, so both the staged bytes and the MMA
+//   work double or triple against the bf16 route. The design is the bf16
+//   kernel's, with these differences:
+//   - A stage is kKC = 32 deep, as in bf16 (one 16-byte cp.async piece is
+//     4 channels), in a 2-stage ring: twice the bytes a stage, and 2
+//     stages of a 192-wide tile fill 161 KB. On the card 32-deep stages
+//     were faster over the MoPA shapes than 16-deep ones in a 3-4 deep
+//     ring.
+//   - Each stage's products sum from zero in registers (a few 16-column
+//     blocks at a time) and join the float32 accumulator by an add. The
+//     MMA's own accumulation drops low bits: chained over a whole column
+//     loop it drifted on the card past chip_smoke's float32 gradient check
+//     (1e-3 of a gradient's largest value, where gradients cancel).
+//   - ldmatrix.trans moves 16-bit elements and cannot transpose float32.
+//     So a first kernel (subm_conv_f32_pack) packs the weight n-major into
+//     a (9, 2, NP, KP) scratch: column c's (3*Cin, Cout) block transposed,
+//     its TF32 high part, then its low part, zero-padded, once per launch.
+//     A plain ldmatrix then gives the B fragments, and B needs no
+//     conversion in the loop. The A fragments come from the voxel-major
+//     windows by a plain ldmatrix too, and are split in registers.
+//   - The mirror mode (d_feats) is the same kernel on the pack of
+//     W' = weight[::-1].transpose(1, 2): the pack is where the two differ.
+//   - The stem (Cin = 1: 4-byte rows) stages with plain loads; SPVCNN's
+//     stem (Cin = 4) is one cp.async a row.
+//   - Epilogue: float32 through shared memory, written as 16-byte rows.
 
 #include "tensor_core.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// ---------------------------------------------------------------- float32
-
-constexpr int kTileV = 64;       // voxels per CTA
-constexpr int kChunk = 32;       // input channels per staged chunk
-constexpr int kCoutMax = 192;    // widest Cout either route holds
-constexpr int kThreadsX = 32;    // output channels per pass
-constexpr int kThreadsY = 8;     // voxel rows per pass
-constexpr int kRows = kTileV / kThreadsY;
-
-// NM = ceil(Cout / 32): output-channel passes held per thread. mirror = 0:
-// weight is (27, cin, cout) and offset k multiplies weight[k]. mirror = 1 (the
-// backward's d_feats): weight is the forward's (27, cout, cin) and offset k
-// multiplies weight[26 - k]^T.
-template <int NM>
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-subm_conv_f32_kernel(const float* __restrict__ feats,
-                     const int* __restrict__ ranks,
-                     const int* __restrict__ sel,
-                     const float* __restrict__ weight,
-                     float* __restrict__ out, int V, int cin, int cout,
-                     int mirror) {
-  __shared__ int src_s[kTileV][27];
-  __shared__ int any_s[27];
-  __shared__ float a_s[kTileV][kChunk];
-  // +1 column: the mirror mode writes along kk, which would otherwise hit one
-  // bank 32 times
-  __shared__ float w_s[kChunk][kCoutMax + 1];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kThreadsX + tx;
-  const int nthreads = kThreadsX * kThreadsY;
-  const long long v0 = static_cast<long long>(blockIdx.x) * kTileV;
-
-  for (int i = tid; i < kTileV * 27; i += nthreads) (&src_s[0][0])[i] = -1;
-  if (tid < 27) any_s[tid] = 0;
-  __syncthreads();
-
-  // Resolve each voxel's source row per kernel offset. Codes strictly
-  // increase along j, so no two rows of a column share a slot.
-  for (int i = tid; i < kTileV * 9; i += nthreads) {
-    const int lv = i / 9;
-    const int c = i % 9;
-    const long long v = v0 + lv;
-    if (v >= V) continue;
-    const int r = ranks[v * 9 + c];
-    const int code = sel[v * 9 + c];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int t = (code >> (2 * j)) & 3;
-      const long long row = static_cast<long long>(r) + j;
-      if (t < 3 && row >= 0 && row < V) {
-        src_s[lv][3 * c + t] = static_cast<int>(row);
-        any_s[3 * c + t] = 1;
-      }
-    }
-  }
-  __syncthreads();
-
-  float acc[kRows][NM];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int m = 0; m < NM; ++m) acc[r][m] = 0.f;
-
-  for (int k = 0; k < 27; ++k) {
-    if (!any_s[k]) continue;  // uniform across the CTA
-    const float* wk =
-        weight + static_cast<size_t>(mirror ? 26 - k : k) * cin * cout;
-    for (int k0 = 0; k0 < cin; k0 += kChunk) {
-      const int kc = min(kChunk, cin - k0);
-      for (int i = tid; i < kTileV * kChunk; i += nthreads) {
-        const int lv = i / kChunk;
-        const int kk = i % kChunk;
-        const int row = src_s[lv][k];
-        a_s[lv][kk] = (row >= 0 && kk < kc)
-                          ? feats[static_cast<size_t>(row) * cin + k0 + kk]
-                          : 0.f;
-      }
-      if (mirror) {  // wk is (cout, cin): walk kk fastest for coalesced reads
-        for (int i = tid; i < kc * cout; i += nthreads) {
-          const int kk = i % kc;
-          const int co = i / kc;
-          w_s[kk][co] = wk[static_cast<size_t>(co) * cin + k0 + kk];
-        }
-      } else {
-        for (int i = tid; i < kc * cout; i += nthreads) {
-          const int kk = i / cout;
-          const int co = i % cout;
-          w_s[kk][co] = wk[static_cast<size_t>(k0 + kk) * cout + co];
-        }
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kc; ++kk) {
-        float w[NM];
-#pragma unroll
-        for (int m = 0; m < NM; ++m) {
-          const int co = tx + kThreadsX * m;
-          w[m] = co < cout ? w_s[kk][co] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float a = a_s[ty + kThreadsY * r][kk];
-#pragma unroll
-          for (int m = 0; m < NM; ++m) acc[r][m] = fmaf(a, w[m], acc[r][m]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const long long v = v0 + ty + kThreadsY * r;
-    if (v >= V) continue;
-#pragma unroll
-    for (int m = 0; m < NM; ++m) {
-      const int co = tx + kThreadsX * m;
-      if (co < cout) out[v * cout + co] = acc[r][m];
-    }
-  }
-}
-
-int run_f32(const void* feats, const void* ranks, const void* sel,
-            const void* weight, void* out, int V, int cin, int cout,
-            int mirror, void* stream) {
-  if (V <= 0) return 0;
-  if (cin < 1 || cout < 1 || cout > kCoutMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nm = (cout + kThreadsX - 1) / kThreadsX;
-  const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((V + kTileV - 1) / kTileV);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* f = static_cast<const float*>(feats);
-  const int* r = static_cast<const int*>(ranks);
-  const int* s = static_cast<const int*>(sel);
-  const float* w = static_cast<const float*>(weight);
-  float* o = static_cast<float*>(out);
-  switch (nm) {
-#define MOPA_CASE(N)                                                       \
-    case N:                                                                \
-      subm_conv_f32_kernel<N><<<grid, block, 0, st>>>(f, r, s, w, o, V,    \
-                                                      cin, cout, mirror);  \
-      break;
-    MOPA_CASE(1) MOPA_CASE(2) MOPA_CASE(3) MOPA_CASE(4) MOPA_CASE(5)
-    default: MOPA_CASE(6)
-#undef MOPA_CASE
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------- bfloat16
 
@@ -506,25 +380,338 @@ int launch_tc(const bf16* f, const int* r, const int* s, const bf16* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- float32
+
+constexpr int kStages32 = 2;          // cp.async ring depth
+constexpr int kPitch32 = kKC + 4;     // floats per staged A / B row
+
+// floats of one ring stage: A [kTileM][kPitch32], then B's high and low
+// parts, each [NP][kPitch32].
+__host__ __device__ constexpr int f32_stage_floats(int np) {
+  return (kTileM + 2 * np) * kPitch32;
+}
+
+// Dynamic shared memory of the NP-wide float32 kernel: the resolved rows,
+// the column list, then the ring of stages, which the epilogue's
+// [kTileM][NP + 8] tile reuses.
+constexpr int f32_smem_bytes(int np) {
+  return (27 * kTileM + kFlags) * 4
+         + 4 * (kStages32 * f32_stage_floats(np) > kTileM * (np + 8)
+                    ? kStages32 * f32_stage_floats(np)
+                    : kTileM * (np + 8));
+}
+
+// The float32 kernel's B operand from the FORWARD weight (as
+// subm_conv_tc_kernel reads it: (27, cin, cout) when !mirror, (27, cout,
+// cin) when mirror): pack (9, 2, np, kp), pack[c][0][n][k] and
+// pack[c][1][n][k] the TF32 high and low parts of column c's B[k][n], zero
+// beyond 3*cin rows and cout columns. n-major, so that ldmatrix gives the
+// B fragments with no transpose; split once per launch, not per MMA.
+__global__ void subm_conv_f32_pack(const float* __restrict__ weight,
+                                   float* __restrict__ pack, int cin,
+                                   int cout, int kp, int np, int mirror) {
+  const long long total = 9LL * np * kp;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                     + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int k = static_cast<int>(i % kp);
+    const int n = static_cast<int>((i / kp) % np);
+    const int c = static_cast<int>(i / (static_cast<long long>(kp) * np));
+    float b = 0.f;
+    if (k < 3 * cin && n < cout) {
+      const int t = k / cin;
+      const int ci = k - t * cin;
+      b = mirror
+              ? weight[(static_cast<size_t>(26 - 3 * c - t) * cout + n) * cin
+                       + ci]
+              : weight[(static_cast<size_t>(3 * c + t) * cin + ci) * cout
+                       + n];
+    }
+    uint32_t hi, lo;
+    mopa_tc::tf32_split(b, hi, lo);
+    float* p = pack + (static_cast<size_t>(c) * 2 * np + n) * kp + k;
+    p[0] = __uint_as_float(hi);
+    p[static_cast<size_t>(np) * kp] = __uint_as_float(lo);
+  }
+}
+
+// NT = NP / 16. feats (V, cin) and out (V, cout) float32; wpack the
+// (9, 2, NP, kp) pack of subm_conv_f32_pack. The forward (K1) and the
+// mirror (d_feats) differ only in the pack. Two CTAs an SM up to NP = 64:
+// at NP = 96 the split fragments do not fit 128 registers a thread (ptxas
+// spills).
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT <= 4 ? 2 : 1)
+subm_conv_f32_tc_kernel(const float* __restrict__ feats,
+                        const int* __restrict__ ranks,
+                        const int* __restrict__ sel,
+                        const float* __restrict__ wpack,
+                        float* __restrict__ out, int V, int cin, int cout,
+                        int kp) {
+  using namespace mopa_tc;
+  constexpr int NP = 16 * NT;
+  constexpr int kS = kStages32;
+  constexpr int kAStage = kTileM * kPitch32;
+  constexpr int kBStage = NP * kPitch32;  // one of the high, low parts
+  constexpr int kStage = f32_stage_floats(NP);
+  constexpr int kOpitch = NP + 8;
+  // 16-column blocks whose stage sums are held at once: half the blocks
+  // above 4, so the partial sums fit the registers beside the accumulator
+  constexpr int kGroup = NT <= 4 ? NT : NT / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* src_s = reinterpret_cast<int*>(smem);  // [27][kTileM] source rows
+  int* flag_s = src_s + 27 * kTileM;          // [0, 9) active, [16, 25) list
+  float* ring = reinterpret_cast<float*>(flag_s + kFlags);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long v0 = static_cast<long long>(blockIdx.x) * kTileM;
+
+  for (int i = tid; i < 27 * kTileM; i += kThreads) src_s[i] = -1;
+  if (tid < kFlags) flag_s[tid] = 0;
+  __syncthreads();
+  for (int i = tid; i < kTileM * 9; i += kThreads) {
+    const int lv = i / 9;
+    const int c = i % 9;
+    const long long v = v0 + lv;
+    if (v >= V) continue;
+    const int r = ranks[v * 9 + c];
+    const int code = sel[v * 9 + c];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int t = (code >> (2 * j)) & 3;
+      const long long row = static_cast<long long>(r) + j;
+      if (t < 3 && row >= 0 && row < V) {
+        src_s[(3 * c + t) * kTileM + lv] = static_cast<int>(row);
+        flag_s[c] = 1;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int c = 0; c < 9; ++c)
+      if (flag_s[c]) flag_s[16 + n++] = c;
+    flag_s[kFlags - 1] = n;
+  }
+  __syncthreads();
+
+  const int nck = kp / kKC;  // stages per column
+  const int n_items = flag_s[kFlags - 1] * nck;
+  const int kcol = 3 * cin;
+  const bool vec_a = (cin % 4) == 0;
+
+  // Stage `item` (column list[item / nck], K rows [k0, k0 + kKC)) into
+  // ring slot `slot`.
+  auto load = [&](int item, int slot) {
+    const int c = flag_s[16 + item / nck];
+    const int k0 = (item % nck) * kKC;
+    float* a_s = ring + slot * kStage;
+    float* b_s = a_s + kAStage;
+    if (vec_a) {
+      // thread's 16-byte piece s = tid % 4 of rows tid / 4 + 64 i
+      const int k = k0 + 4 * (tid % (kKC / 4));
+      const int t = k < kcol ? k / cin : 0;
+      const int ci = k - t * cin;
+      for (int lv = tid / (kKC / 4); lv < kTileM;
+           lv += kThreads / (kKC / 4)) {
+        const int row = k < kcol ? src_s[(3 * c + t) * kTileM + lv] : -1;
+        const float* src =
+            row >= 0 ? feats + static_cast<size_t>(row) * cin + ci : feats;
+        cp_async16(smem_u32(a_s + lv * kPitch32 + (k - k0)), src, row >= 0);
+      }
+    } else {  // rows narrower than 16 bytes (the stem): plain loads,
+              // voxels across the threads so the few real K rows spread
+      for (int i = tid; i < kTileM * kKC; i += kThreads) {
+        const int lv = i % kTileM;
+        const int k = k0 + i / kTileM;
+        float val = 0.f;
+        if (k < kcol) {
+          const int t = k / cin;
+          const int row = src_s[(3 * c + t) * kTileM + lv];
+          if (row >= 0)
+            val = feats[static_cast<size_t>(row) * cin + (k - t * cin)];
+        }
+        a_s[lv * kPitch32 + (k - k0)] = val;
+      }
+    }
+    // B: rows [0, NP) the high part, [NP, 2 NP) the low part of column c,
+    // K columns [k0, k0 + kKC): dense, padded by the wrapper
+    const float* wc = wpack + static_cast<size_t>(c) * 2 * NP * kp + k0;
+    for (int i = tid; i < 2 * NP * (kKC / 4); i += kThreads) {
+      const int r = i / (kKC / 4);
+      const int kk = 4 * (i % (kKC / 4));
+      cp_async16(smem_u32(b_s + r * kPitch32 + kk),
+                 wc + static_cast<size_t>(r) * kp + kk, true);
+    }
+  };
+
+  float acc[NT][2][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][h][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kS - 1; ++s) {
+    if (s < n_items) load(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<kS - 2>();
+    __syncthreads();  // stage `it` landed; stage it - 1 is free for reuse
+    const int next = it + kS - 1;
+    if (next < n_items) load(next, next % kS);
+    cp_async_commit();
+    const float* a_s = ring + (it % kS) * kStage;
+    const float* bh_s = a_s + kAStage;
+    const float* bl_s = bh_s + kBStage;
+    // The stage's products sum from zero, kGroup 16-column blocks at a
+    // time, and join the accumulator by a float32 add (see the header).
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += kGroup) {
+      float part[kGroup][2][4] = {};
+      // not unrolled: unrolled, ptxas hoists the next k-steps' loads and
+      // spills at NT = 4 and 12
+#pragma unroll 1
+      for (int ks = 0; ks < kKC / 8; ++ks) {
+        // matrix i of the x4: rows + 8 (i % 2), K + 4 (i / 2) -> a0..a3
+        uint32_t a[4], a_hi[4], a_lo[4];
+        ldsm_x4(smem_u32(a_s + (warp * 16 + (lane & 15)) * kPitch32
+                         + ks * 8 + (lane >> 4) * 4),
+                a);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tf32_split(__uint_as_float(a[e]), a_hi[e], a_lo[e]);
+#pragma unroll
+        for (int jj = 0; jj < kGroup; ++jj) {
+          // matrix i of the x4: columns n + 8 (i / 2), K + 4 (i % 2);
+          // b[0], b[1]: output columns 16j..16j+7; b[2], b[3]: +8
+          const int off =
+              ((j0 + jj) * 16 + (lane & 7) + (lane >> 4) * 8) * kPitch32
+              + ks * 8 + ((lane >> 3) & 1) * 4;
+          uint32_t bh[4], bl[4];
+          ldsm_x4(smem_u32(bh_s + off), bh);
+          ldsm_x4(smem_u32(bl_s + off), bl);
+          mma_3xtf32(part[jj][0], a_hi, a_lo, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(part[jj][1], a_hi, a_lo, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j0 + jj][h][e] += part[jj][h][e];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the output tile there
+
+  float* o_s = ring;  // [kTileM][kOpitch]
+  const int g = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = j * 16 + h * 8 + 2 * q;
+      const int row = warp * 16 + g;
+      *reinterpret_cast<float2*>(o_s + row * kOpitch + col) =
+          make_float2(acc[j][h][0], acc[j][h][1]);
+      *reinterpret_cast<float2*>(o_s + (row + 8) * kOpitch + col) =
+          make_float2(acc[j][h][2], acc[j][h][3]);
+    }
+  __syncthreads();
+  if (cout % 4 == 0) {
+    const int segs = cout / 4;
+    for (int i = tid; i < kTileM * segs; i += kThreads) {
+      const int lv = i / segs;
+      const int s = i % segs;
+      const long long v = v0 + lv;
+      if (v < V)
+        *reinterpret_cast<float4*>(out + v * cout + 4 * s) =
+            *reinterpret_cast<const float4*>(o_s + lv * kOpitch + 4 * s);
+    }
+  } else {
+    for (int i = tid; i < kTileM * cout; i += kThreads) {
+      const int lv = i / cout;
+      const int co = i % cout;
+      const long long v = v0 + lv;
+      if (v < V) out[v * cout + co] = o_s[lv * kOpitch + co];
+    }
+  }
+}
+
+template <int NT>
+int launch_f32_tc(const float* f, const int* r, const int* s,
+                  const float* w, float* o, int V, int cin, int cout, int kp,
+                  cudaStream_t st) {
+  static bool granted = false;  // per instance
+  const int smem = f32_smem_bytes(16 * NT);
+  if (!granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        subm_conv_f32_tc_kernel<NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = true;
+  }
+  subm_conv_f32_tc_kernel<NT>
+      <<<(V + kTileM - 1) / kTileM, kThreads, smem, st>>>(f, r, s, w, o, V,
+                                                         cin, cout, kp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// K1 and K2 d_feats on the float32 route. mirror = 0 (K1): feats (V, cin),
-// weight (27, cin, cout), out (V, cout). mirror = 1 (d_feats): feats is the
-// cotangent g (V, cin) with cin = the forward's Cout, weight the FORWARD
-// weight (27, cout, cin), out d_feats (V, cout). All float32, contiguous;
-// ranks and sel int32 (V*9). Launches on `stream` and returns
+// K1 and K2 d_feats on the float32 route (3xTF32 tensor cores); arguments
+// as mopa_subm_conv_tc's, in float32, plus `pack`, a (9, 2, np, kp) float32
+// scratch that the first of the two kernels launched fills with the split
+// weight (subm_conv_f32_pack). Launches both on `stream` and returns
 // cudaGetLastError().
 extern "C" int mopa_subm_conv_f32(const void* feats, const void* ranks,
                                   const void* sel, const void* weight,
-                                  void* out, int V, int cin, int cout,
-                                  int mirror, void* stream) {
-  return run_f32(feats, ranks, sel, weight, out, V, cin, cout, mirror,
-                 stream);
+                                  void* pack, void* out, int V, int cin,
+                                  int cout, int mirror, int kp, int np,
+                                  void* stream) {
+  if (V <= 0) return 0;
+  if (cin < 1 || cout < 1 || cout > np || kp % kKC != 0 || kp < 3 * cin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* f = static_cast<const float*>(feats);
+  const int* r = static_cast<const int*>(ranks);
+  const int* s = static_cast<const int*>(sel);
+  float* w = static_cast<float*>(pack);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long total = 9LL * np * kp;
+  const long long blocks = total / 256 + 1;
+  subm_conv_f32_pack<<<static_cast<unsigned>(blocks < 1056 ? blocks : 1056),
+                       256, 0, st>>>(static_cast<const float*>(weight), w,
+                                     cin, cout, kp, np, mirror);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  switch (np) {
+#define MOPA_CASE(NT)                                                      \
+    case 16 * NT:                                                          \
+      return launch_f32_tc<NT>(f, r, s, w, o, V, cin, cout, kp, st);
+    MOPA_CASE(1) MOPA_CASE(2) MOPA_CASE(3) MOPA_CASE(4) MOPA_CASE(6)
+    MOPA_CASE(8) MOPA_CASE(12)
+#undef MOPA_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// K1 and K2 d_feats on the bfloat16 tensor-core route; arguments as
-// mopa_subm_conv_f32's, in bfloat16, plus the tile shape: kp a multiple of
-// 32 and >= 3*cin, np one of 16, 32, 48, 64, 96, 128, 192 and >= cout.
+// K1 and K2 d_feats on the bfloat16 tensor-core route. feats (V, cin) and
+// out (V, cout) bfloat16, contiguous; weight the FORWARD weight in place,
+// bfloat16:
+// (27, cin, cout) when mirror = 0 (K1), (27, cout, cin) when mirror = 1
+// (d_feats, feats the cotangent); ranks and sel int32 (V*9); the tile
+// shape: kp a multiple of 32 and >= 3*cin, np one of 16, 32, 48, 64, 96,
+// 128, 192 and >= cout.
 extern "C" int mopa_subm_conv_tc(const void* feats, const void* ranks,
                                  const void* sel, const void* weight,
                                  void* out, int V, int cin, int cout,

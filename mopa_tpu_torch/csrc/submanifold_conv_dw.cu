@@ -55,16 +55,27 @@
 //   - The stem (Cin = 1: rows below cp.async's 16 bytes) stages its feats
 //     with plain loads into the same layout.
 //
-// * float32 (the checking paths and SPVCNN's float32 decoder):
-//   subm_conv_dw_f32_kernel, CUDA cores,
-//   so float32 stays within 1e-4 of the plain twin. Grid = (voxel ranges, 27
-//   offsets, ceil(Cin / 32)); a CTA owns a 32 x Cout (<= 192) block of
-//   d_w[k] in registers and walks its range in chunks of 32 voxels: it
-//   resolves the chunk's source rows for offset k (the direct form: d_w[k]
-//   = sum feats[row(v, k)]^T g[v]), skips the chunk if none exists, stages
-//   the gathered feats rows and the chunk's g rows and runs an FMA loop. It
-//   writes d_w[k]'s partial where the tensor-core route writes it, and the
-//   same reduction follows.
+// * float32 (the checking paths, the convergence run and SPVCNN's float32
+//   decoder): subm_conv_dw_f32_tc_kernel, tensor cores in 3xTF32
+//   (tensor_core.cuh), so float32 stays within 1e-4 of the plain twin. The
+//   design is the bf16 kernel's: the same CTA ownership and tiling (the
+//   wrapper's dw_tiling), g's aligned windows staged once per (range,
+//   column) and channel block, feats rows by cp.async, the same partial
+//   sums and the same fixed-order reduction. The differences:
+//   - A stage is kKV32 = 16 voxels deep (one 16-byte piece is 4 channels),
+//     so that three stages of a 32 x 768 tile fit the shared memory.
+//   - Both operands are read transposed (A^T = feats^T from voxel-major
+//     rows; B from voxel-major windows), and ldmatrix cannot transpose
+//     32-bit elements: the fragments come by plain 32-bit shared loads.
+//     Rows are padded by 8 floats, so the 32 lanes of a fragment load (4
+//     voxel rows x 8 channels) hit 32 distinct banks.
+//   - Each fragment is split into its TF32 high and low parts in registers
+//     (neither operand is a weight that could be packed once), and each
+//     product accumulates lo*hi + hi*lo + hi*hi.
+//   - Each MMA's three products sum from zero and join the float32
+//     accumulator by an add: the MMA's own accumulation drops low bits,
+//     and chained over a voxel range it drifts past float32's rounding
+//     (submanifold_conv.cu says how far).
 
 #include "tensor_core.cuh"
 
@@ -73,117 +84,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kCoutMax = 192;  // widest Cout either route holds
-
-// ---------------------------------------------------------------- float32
-
-constexpr int kChunkV = 32;         // voxels per staged chunk
-constexpr int kTileCi = 32;         // input channels per CTA
-constexpr int kThreadsX = 32;       // output channels per pass
-constexpr int kThreadsY = 8;        // input-channel rows per pass
-constexpr int kCiRows = kTileCi / kThreadsY;
-
-// NM = ceil(Cout / 32). partial is (ranges, 9, cin, 3*cout) float32.
-template <int NM>
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-subm_conv_dw_f32_kernel(const float* __restrict__ feats,
-                        const float* __restrict__ g,
-                        const int* __restrict__ ranks,
-                        const int* __restrict__ sel,
-                        float* __restrict__ partial, int V, int cin,
-                        int cout, int range_rows) {
-  __shared__ int src_s[kChunkV];
-  __shared__ float a_s[kChunkV][kTileCi];
-  __shared__ float g_s[kChunkV][kCoutMax];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kThreadsX + tx;
-  const int nthreads = kThreadsX * kThreadsY;
-  const int range = blockIdx.x;
-  const int k = blockIdx.y;
-  const int ci0 = blockIdx.z * kTileCi;
-  const int col = k / 3;
-  const int slot = k % 3;
-  const int kc = min(kTileCi, cin - ci0);
-  const long long v_begin = static_cast<long long>(range) * range_rows;
-  const long long v_end =
-      min(static_cast<long long>(V), v_begin + range_rows);
-
-  float acc[kCiRows][NM];
-#pragma unroll
-  for (int i = 0; i < kCiRows; ++i)
-#pragma unroll
-    for (int m = 0; m < NM; ++m) acc[i][m] = 0.f;
-
-  for (long long vb = v_begin; vb < v_end; vb += kChunkV) {
-    int row = -1;
-    if (tid < kChunkV) {
-      const long long v = vb + tid;
-      if (v < v_end) {
-        const int r = ranks[v * 9 + col];
-        const int code = sel[v * 9 + col];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const long long rr = static_cast<long long>(r) + j;
-          if (((code >> (2 * j)) & 3) == slot && rr >= 0 && rr < V)
-            row = static_cast<int>(rr);
-        }
-      }
-      src_s[tid] = row;
-    }
-    // barrier + vote: skip chunks where no voxel has offset k (uniform)
-    if (!__syncthreads_or(row >= 0)) continue;
-
-    for (int i = tid; i < kChunkV * kTileCi; i += nthreads) {
-      const int vv = i / kTileCi;
-      const int kk = i % kTileCi;
-      const int r = src_s[vv];
-      a_s[vv][kk] = (r >= 0 && kk < kc)
-                        ? feats[static_cast<size_t>(r) * cin + ci0 + kk]
-                        : 0.f;
-    }
-    for (int i = tid; i < kChunkV * cout; i += nthreads) {
-      const int vv = i / cout;
-      const int co = i % cout;
-      g_s[vv][co] = src_s[vv] >= 0
-                        ? g[static_cast<size_t>(vb + vv) * cout + co]
-                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int vv = 0; vv < kChunkV; ++vv) {
-      float gv[NM];
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        const int co = tx + kThreadsX * m;
-        gv[m] = co < cout ? g_s[vv][co] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kCiRows; ++i) {
-        const float a = a_s[vv][ty + kThreadsY * i];
-#pragma unroll
-        for (int m = 0; m < NM; ++m) acc[i][m] = fmaf(a, gv[m], acc[i][m]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // d_w[k] is block t of column c with 3c + t = 26 - k (the layout the
-  // tensor-core route writes, so one reduction serves both)
-  float* out = partial + (static_cast<size_t>(range) * 9 + (26 - k) / 3)
-                             * cin * 3 * cout
-      + (26 - k) % 3 * cout;
-#pragma unroll
-  for (int i = 0; i < kCiRows; ++i) {
-    const int ci = ci0 + ty + kThreadsY * i;
-    if (ci >= cin) continue;
-#pragma unroll
-    for (int m = 0; m < NM; ++m) {
-      const int co = tx + kThreadsX * m;
-      if (co < cout) out[static_cast<size_t>(ci) * 3 * cout + co] = acc[i][m];
-    }
-  }
-}
 
 // ---------------------------------------------------------------- bfloat16
 
@@ -427,6 +327,249 @@ __global__ void subm_conv_dw_reduce(const float* __restrict__ partial,
   dw[i] = s;
 }
 
+// ---------------------------------------------------------------- float32
+
+constexpr int kKV32 = 16;            // voxels (the GEMM's K) per f32 stage
+constexpr int kChunks32 = kSeg / kKV32;
+constexpr int kDwStages32 = 3;       // cp.async ring depth
+
+// Dynamic shared memory of the float32 kernel for a (16*wm) x np_cta CTA
+// tile: 3 slot rows per voxel of a segment, the chunk flags and list, then
+// the (A, B) ring in floats.
+constexpr int dw_f32_smem_bytes(int wm, int np_cta) {
+  return (3 * kSeg + 2 * kChunks32 + 16) * 4
+         + kDwStages32 * kKV32 * ((16 * wm + 8) + (np_cta + 8)) * 4;
+}
+
+// As subm_conv_dw_tc_kernel, on float32 rows in 3xTF32. partial is
+// (ranges, 9, cin, 3*cout) float32.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT <= 6 ? 2 : 1)
+subm_conv_dw_f32_tc_kernel(const float* __restrict__ feats,
+                           const float* __restrict__ g,
+                           const int* __restrict__ ranks,
+                           const int* __restrict__ sel,
+                           float* __restrict__ partial, int V, int cin,
+                           int cout, int range_rows, int wm) {
+  using namespace mopa_tc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* src_s = reinterpret_cast<int*>(smem);  // [3][kSeg] slot rows
+  int* flag_s = src_s + 3 * kSeg;             // [kChunks32] chunk has a pair
+  int* list_s = flag_s + kChunks32;           // [kChunks32] chunks to stage
+  int* count_s = list_s + kChunks32;          // [16]: the list's length
+  float* ring = reinterpret_cast<float*>(count_s + 16);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int range = blockIdx.x;
+  const int c = blockIdx.y;
+  const int mp = 16 * wm;                 // channel rows of the CTA tile
+  const int ci0 = blockIdx.z * mp;
+  const int wn = kWarps / wm;
+  const int np_cta = 16 * NT * wn;        // output columns of the CTA tile
+  const int apitch = mp + 8;
+  const int bpitch = np_cta + 8;
+  const int a_stage = kKV32 * apitch;
+  const int stage = a_stage + kKV32 * bpitch;
+  const int m0 = 16 * (warp % wm);        // this warp's rows and columns
+  const int n0 = 16 * NT * (warp / wm);
+  const int ncol = 3 * cout;
+  const bool warp_on = ci0 + m0 < cin;    // uniform per warp
+  const bool vec_f = (cin % 4) == 0;
+  const bool vec_g = (cout % 4) == 0;
+  const long long v_begin = static_cast<long long>(range) * range_rows;
+  const long long v_end =
+      min(static_cast<long long>(V), v_begin + range_rows);
+  // Each thread stages one fixed 16-byte column of A and of B and walks
+  // the chunk's rows: A column ca of row ra (the kKV32 x mp/4 pieces fit
+  // one pass), B column nb (slot tb, channel cob) of rows rb, rb + b_rows,
+  // ... (threads past whole rows of pieces idle).
+  const int segs_a = mp / 4;
+  const int ra = tid / segs_a;
+  const int ca = ci0 + 4 * (tid % segs_a);
+  const int segs_b = np_cta / 4;
+  const int b_rows = kThreads / segs_b;
+  const int rb = tid < b_rows * segs_b ? tid / segs_b : kKV32;
+  const int nb = 4 * (tid % segs_b);
+  const int tb = nb < ncol ? nb / cout : 0;
+  const int cob = nb - tb * cout;
+  const int gr = lane >> 2;
+  const int q = lane & 3;
+
+  float acc[NT][2][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][h][e] = 0.f;
+
+  for (long long seg0 = v_begin; seg0 < v_end; seg0 += kSeg) {
+    const long long left = v_end - seg0;
+    const int seg_n = left < kSeg ? static_cast<int>(left) : kSeg;
+    __syncthreads();  // the previous segment's readers are done
+    for (int i = tid; i < kChunks32; i += kThreads) flag_s[i] = 0;
+    __syncthreads();
+    for (int i = tid; i < kSeg; i += kThreads) {
+      int rows[3] = {-1, -1, -1};
+      if (i < seg_n) {
+        const long long v = seg0 + i;
+        const int r = ranks[v * 9 + c];
+        const int code = sel[v * 9 + c];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int t = (code >> (2 * j)) & 3;
+          const long long row = static_cast<long long>(r) + j;
+          if (t < 3 && row >= 0 && row < V) rows[t] = static_cast<int>(row);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 3; ++t) src_s[t * kSeg + i] = rows[t];
+      if (rows[0] >= 0 || rows[1] >= 0 || rows[2] >= 0)
+        flag_s[i / kKV32] = 1;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int n = 0;
+      for (int ch = 0; ch < kChunks32; ++ch)
+        if (flag_s[ch]) list_s[n++] = ch;
+      count_s[0] = n;
+    }
+    __syncthreads();
+    const int n_items = count_s[0];
+
+    // Stage chunk list[item] (segment voxels [vb, vb + kKV32)) into ring
+    // slot `slot`.
+    auto load = [&](int item, int slot) {
+      const int vb = list_s[item] * kKV32;
+      float* a_s = ring + slot * stage;
+      float* b_s = a_s + a_stage;
+      if (vec_f) {
+        if (ra < kKV32) {
+          const bool ok = vb + ra < seg_n && ca < cin;
+          const float* src =
+              ok ? feats + static_cast<size_t>(seg0 + vb + ra) * cin + ca
+                 : feats;
+          cp_async16(smem_u32(a_s + ra * apitch + ca - ci0), src, ok);
+        }
+      } else {  // rows narrower than 16 bytes (the stem): plain loads,
+                // voxels across the threads
+        for (int i = tid; i < kKV32 * mp; i += kThreads) {
+          const int r = i % kKV32;
+          const int ci = ci0 + i / kKV32;
+          float val = 0.f;
+          if (vb + r < seg_n && ci < cin)
+            val = feats[static_cast<size_t>(seg0 + vb + r) * cin + ci];
+          a_s[r * apitch + ci - ci0] = val;
+        }
+      }
+      if (vec_g) {
+        for (int r = rb; r < kKV32; r += b_rows) {
+          const int row = nb < ncol ? src_s[tb * kSeg + vb + r] : -1;
+          const float* src =
+              row >= 0 ? g + static_cast<size_t>(row) * cout + cob : g;
+          cp_async16(smem_u32(b_s + r * bpitch + nb), src, row >= 0);
+        }
+      } else {
+        for (int i = tid; i < kKV32 * np_cta; i += kThreads) {
+          const int r = i / np_cta;
+          const int n = i % np_cta;
+          float val = 0.f;
+          if (n < ncol) {
+            const int t = n / cout;
+            const int row = src_s[t * kSeg + vb + r];
+            if (row >= 0)
+              val = g[static_cast<size_t>(row) * cout + (n - t * cout)];
+          }
+          b_s[r * bpitch + n] = val;
+        }
+      }
+    };
+
+#pragma unroll
+    for (int s = 0; s < kDwStages32 - 1; ++s) {
+      if (s < n_items) load(s, s);
+      cp_async_commit();
+    }
+    for (int it = 0; it < n_items; ++it) {
+      cp_async_wait<kDwStages32 - 2>();
+      __syncthreads();  // chunk `it` landed; slot of it - 1 is free
+      const int next = it + kDwStages32 - 1;
+      if (next < n_items) load(next, next % kDwStages32);
+      cp_async_commit();
+      if (!warp_on) continue;
+      const float* a_s = ring + (it % kDwStages32) * stage;
+      const float* b_s = a_s + a_stage;
+#pragma unroll
+      for (int ks = 0; ks < kKV32 / 8; ++ks) {
+        // A = feats^T: a0..a3 = A[m0 + gr (+8)][voxel q (+4)], i.e. the
+        // voxel-major tile at (voxel, channel)
+        const float* ap = a_s + (ks * 8 + q) * apitch + m0 + gr;
+        const float ax[4] = {ap[0], ap[8], ap[4 * apitch],
+                             ap[4 * apitch + 8]};
+        uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(ax[e], a_hi[e], a_lo[e]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (n0 + 16 * j >= ncol) break;  // uniform per warp
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // b0, b1 = B[voxel q (+4)][column gr] of this 8-wide block
+            const float* bp =
+                b_s + (ks * 8 + q) * bpitch + n0 + 16 * j + 8 * h + gr;
+            uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+            tf32_split(bp[0], b0_hi, b0_lo);
+            tf32_split(bp[4 * bpitch], b1_hi, b1_lo);
+            // from zero, then a float32 add (see the header)
+            float part[4] = {};
+            mma_3xtf32(part, a_hi, a_lo, b0_hi, b1_hi, b0_lo, b1_lo);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][h][e] += part[e];
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+
+  if (!warp_on) return;
+  float* p = partial + (static_cast<size_t>(range) * 9 + c) * cin * ncol;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + j * 16 + h * 8 + 2 * q;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = ci0 + m0 + gr + (e >> 1) * 8;
+        const int nn = n + (e & 1);
+        if (ci < cin && nn < ncol)
+          p[static_cast<size_t>(ci) * ncol + nn] = acc[j][h][e];
+      }
+    }
+}
+
+template <int NT>
+int launch_dw_f32_tc(const float* f, const float* g, const int* r,
+                     const int* s, float* partial, int V, int cin, int cout,
+                     int ranges, int range_rows, int wm, cudaStream_t st) {
+  static int granted = 0;  // per instance: shared memory allowed so far
+  const int smem = dw_f32_smem_bytes(wm, 16 * NT * (kWarps / wm));
+  if (smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        subm_conv_dw_f32_tc_kernel<NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  const dim3 grid(ranges, 9, (cin + 16 * wm - 1) / (16 * wm));
+  subm_conv_dw_f32_tc_kernel<NT><<<grid, kThreads, smem, st>>>(
+      f, g, r, s, partial, V, cin, cout, range_rows, wm);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NT>
 int launch_dw_tc(const bf16* f, const bf16* g, const int* r, const int* s,
                  float* partial, int V, int cin, int cout, int ranges,
@@ -457,48 +600,53 @@ int reduce(const float* partial, float* dw, int ranges, int cin, int cout,
 
 }  // namespace
 
-// float32 route. feats (V, cin) and g (V, cout) float32, contiguous; ranks
-// and sel int32 (V*9); the sum is split into `ranges` voxel ranges of
-// `range_rows` rows (a multiple of 32); partial is a (ranges, 9, cin,
-// 3 * cout) float32 scratch; dw (27, cin, cout) float32. Launches both kernels on
+// float32 route (3xTF32 tensor cores). feats (V, cin) and g (V, cout)
+// float32, contiguous; ranks and sel int32 (V*9); the sum is split into
+// `ranges` voxel ranges of `range_rows` rows (a multiple of 32); wm and nt
+// the CTA tile as on the bfloat16 route (mopa_subm_conv_dw_tc), with at
+// most 1024 output columns a CTA; partial is a (ranges, 9, cin, 3 * cout)
+// float32 scratch; dw (27, cin, cout) float32. Launches both kernels on
 // `stream` and returns cudaGetLastError().
 extern "C" int mopa_subm_conv_dw_f32(const void* feats, const void* g,
                                      const void* ranks, const void* sel,
                                      void* partial, void* dw, int V, int cin,
                                      int cout, int ranges, int range_rows,
-                                     void* stream) {
+                                     int wm, int nt, void* stream) {
   if (cin < 1 || cout < 1 || cout > kCoutMax || ranges < 1
-      || range_rows % kChunkV != 0
-      || static_cast<long long>(ranges) * range_rows < V)
+      || range_rows % kKV != 0
+      || static_cast<long long>(ranges) * range_rows < V
+      || (wm != 1 && wm != 2 && wm != 4)
+      || 16 * nt * (kWarps / wm) < 3 * cout
+      || 16 * nt * (kWarps / wm) > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n = 27LL * cin * cout;
   if (V <= 0) return static_cast<int>(cudaMemsetAsync(dw, 0, n * 4, st));
-  const int nm = (cout + kThreadsX - 1) / kThreadsX;
-  const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid(ranges, 27, (cin + kTileCi - 1) / kTileCi);
   const float* f = static_cast<const float*>(feats);
   const float* gg = static_cast<const float*>(g);
   const int* r = static_cast<const int*>(ranks);
   const int* s = static_cast<const int*>(sel);
   float* p = static_cast<float*>(partial);
-  switch (nm) {
-#define MOPA_CASE(N)                                                       \
-    case N:                                                                \
-      subm_conv_dw_f32_kernel<N><<<grid, block, 0, st>>>(                  \
-          f, gg, r, s, p, V, cin, cout, range_rows);                       \
+  int err;
+  switch (nt) {
+#define MOPA_CASE(NT)                                                      \
+    case NT:                                                               \
+      err = launch_dw_f32_tc<NT>(f, gg, r, s, p, V, cin, cout, ranges,     \
+                                 range_rows, wm, st);                      \
       break;
-    MOPA_CASE(1) MOPA_CASE(2) MOPA_CASE(3) MOPA_CASE(4) MOPA_CASE(5)
-    default: MOPA_CASE(6)
+    MOPA_CASE(1) MOPA_CASE(2) MOPA_CASE(3) MOPA_CASE(4) MOPA_CASE(6)
+    MOPA_CASE(8) MOPA_CASE(12)
 #undef MOPA_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return reduce(p, static_cast<float*>(dw), ranges, cin, cout, st);
 }
 
 // bfloat16 tensor-core route. feats (V, cin) and g (V, cout) bfloat16,
-// contiguous; ranks, sel, ranges and range_rows as above; wm (1, 2 or 4)
+// contiguous; ranks, sel, ranges and range_rows as on the float32 route;
+// wm (1, 2 or 4)
 // warps along the channel rows and nt (1, 2, 3, 4, 6, 8 or 12) 16-wide
 // output blocks per warp, with 16 * nt * (8 / wm) >= 3 * cout; partial is a
 // (ranges, 9, cin, 3 * cout) float32 scratch; dw (27, cin, cout) float32.

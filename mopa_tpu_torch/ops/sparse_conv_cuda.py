@@ -15,10 +15,15 @@ Each has two routes, chosen by the dtype (:func:`route_for`):
   core GEMMs, the gather of the next stages in flight while the current one
   multiplies. K1 and ``d_feats`` read the forward weight in place
   (``d_feats`` as W'[k] = W[26-k]^T, through ``ldmatrix``'s transpose);
-* ``cuda`` for float32, which the checking paths use and SPVCNN's decoder
-  (float32 under a bfloat16 compute dtype, as in the JAX package): CUDA-core
-  FMA loops, so float32 stays within 1e-4 of the plain twins (TF32 would
-  not).
+* ``cuda-3xtf32`` for float32, which the checking paths, the convergence
+  run and SPVCNN's decoder use (float32 under a bfloat16 compute dtype, as
+  in the JAX package): the same gather feeding TF32 ``mma.sync`` in 3xTF32
+  (each operand split into a TF32 high and low part, three products
+  summed), so float32 stays within 1e-4 of the plain twins (TF32 alone
+  would not). K1 and ``d_feats`` take the forward weight in place too; the
+  library first packs it into a scratch, transposed (``ldmatrix`` cannot
+  transpose 32-bit elements) and already split
+  (:func:`pack_weight_3xtf32` is that pack in PyTorch).
 
 The sources are ``mopa_tpu_torch/csrc/submanifold_conv.cu`` (K1, K2
 ``d_feats``) and ``csrc/submanifold_conv_dw.cu`` (K2 ``d_w``), with the
@@ -70,7 +75,7 @@ P1 = "P1 row_gather"    # ops/gather.py
 P2 = "P2 gather_gemm"   # ops/gather.py
 
 TENSOR_CORE = "cuda-tensorcore"
-CUDA_CORE = "cuda"
+TF32X3 = "cuda-3xtf32"
 
 # The tensor-core kernels' tiling (csrc kTileM, kKC / kKV, the template
 # instances): voxels per conv CTA, K rows per pipeline stage, and the
@@ -88,7 +93,7 @@ MAX_RANGES = 128
 # which path a run went through. ``routes`` splits the conv kernels' counts
 # by route.
 launches = {K1: 0, K2_DFEATS: 0, K2_DW: 0, P1: 0, P2: 0}
-routes = {name: {TENSOR_CORE: 0, CUDA_CORE: 0}
+routes = {name: {TENSOR_CORE: 0, TF32X3: 0}
           for name in (K1, K2_DFEATS, K2_DW)}
 
 _libs: dict | None = None
@@ -156,9 +161,9 @@ def build() -> dict:
     libs = {name: ctypes.CDLL(str(library_path(name))) for name in SOURCES}
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     for fn, args in (
-            (libs["conv"].mopa_subm_conv_f32, [ptr] * 5 + [cint] * 4),
+            (libs["conv"].mopa_subm_conv_f32, [ptr] * 6 + [cint] * 6),
             (libs["conv"].mopa_subm_conv_tc, [ptr] * 5 + [cint] * 6),
-            (libs["dw"].mopa_subm_conv_dw_f32, [ptr] * 6 + [cint] * 5),
+            (libs["dw"].mopa_subm_conv_dw_f32, [ptr] * 6 + [cint] * 7),
             (libs["dw"].mopa_subm_conv_dw_tc, [ptr] * 6 + [cint] * 7),
             (libs["gather"].mopa_row_gather, [ptr] * 3 + [cint] * 4),
             (libs["gather"].mopa_gather_gemm, [ptr] * 4 + [cint] * 5)):
@@ -173,8 +178,8 @@ def build() -> dict:
 
 def route_for(dtype: torch.dtype) -> str:
     """The kernel route of a conv kernel's inputs: bfloat16 runs on the
-    tensor cores, float32 on the CUDA cores."""
-    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
+    tensor cores in bfloat16, float32 in 3xTF32."""
+    return TENSOR_CORE if dtype == torch.bfloat16 else TF32X3
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -187,11 +192,42 @@ def _nt(blocks16: int) -> int:
 
 
 def conv_tile_shape(cin: int, cout: int) -> tuple[int, int]:
-    """(KP, NP) of the tensor-core conv kernel for Cin -> Cout: a column's
-    K = 3*Cin rounded up to :data:`K_STAGE` (the kernel stages zeros past
-    3*Cin), and Cout rounded up to 16 * an instantiated block count (the
-    kernel's register tile)."""
+    """(KP, NP) of the tensor-core conv kernels (both routes) for Cin ->
+    Cout: a column's K = 3*Cin rounded up to :data:`K_STAGE` (the kernel
+    stages zeros past 3*Cin), and Cout rounded up to 16 * an instantiated
+    block count (the kernel's register tile)."""
     return _cdiv(3 * cin, K_STAGE) * K_STAGE, 16 * _nt(_cdiv(cout, 16))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: on the bits, adding half
+    a TF32 unit to the magnitude and clearing the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_weight_3xtf32(weight: torch.Tensor, mirror: bool, kp: int,
+                       np_: int) -> torch.Tensor:
+    """What the float32 conv launch's first kernel (``subm_conv_f32_pack``)
+    writes into its scratch, in PyTorch: (9, 2, NP, KP) float32,
+    ``pack[c][0][n][k] + pack[c][1][n][k]`` column c's B[k][n] split into
+    its TF32 high part ``tf32_round(b)`` and low part
+    ``tf32_round(b - high)``, zero past 3*Cin rows and Cout columns.
+
+    B is transposed (n-major) so that the kernel's ``ldmatrix`` reads its
+    fragments without a transpose. Forward (K1; ``weight`` (27, Cin, Cout)):
+    B[t*Cin + ci][n] = weight[3c + t][ci][n]. Mirror (``d_feats``; the
+    forward weight (27, Cout, Cin) of this launch's Cin -> Cout):
+    B[t*Cin + ci][n] = weight[26 - 3c - t][n][ci]."""
+    w = weight.flip(0) if mirror else weight.transpose(1, 2)
+    _, cout, cin = w.shape  # (27, N, Cin): w[3c + t][n][ci] = B_c
+    bt = w.reshape(9, 3, cout, cin).transpose(1, 2).reshape(9, cout, 3 * cin)
+    pack = weight.new_zeros((9, 2, np_, kp))
+    hi = tf32_round(bt)
+    pack[:, 0, :cout, :3 * cin] = hi
+    pack[:, 1, :cout, :3 * cin] = tf32_round(bt - hi)
+    return pack
 
 
 def tile_columns(ranks: torch.Tensor, sel: torch.Tensor,
@@ -302,13 +338,17 @@ def _conv_block(kernel: str, rows: torch.Tensor, ranks: torch.Tensor,
     width = out.shape[1]
     route = route_for(rows.dtype)
     lib = build()["conv"]
+    kp, np_ = conv_tile_shape(cin, width)
     if route == TENSOR_CORE:
         _launch(kernel, route, lib.mopa_subm_conv_tc, rows.device, rows,
-                ranks, sel, weight, out, v, cin, width, int(mirror),
-                *conv_tile_shape(cin, width))
+                ranks, sel, weight, out, v, cin, width, int(mirror), kp, np_)
     else:
+        # the weight's split pack, written by the launch's first kernel
+        pack = torch.empty((9, 2, np_, kp), dtype=torch.float32,
+                           device=rows.device)
         _launch(kernel, route, lib.mopa_subm_conv_f32, rows.device, rows,
-                ranks, sel, weight, out, v, cin, width, int(mirror))
+                ranks, sel, weight, pack, out, v, cin, width, int(mirror),
+                kp, np_)
 
 
 def _conv(kernel: str, rows: torch.Tensor, ranks: torch.Tensor,
@@ -411,11 +451,8 @@ def _dw_block(g: torch.Tensor, feats: torch.Tensor, ranks: torch.Tensor,
     out = torch.empty((27, cin, cout), dtype=torch.float32, device=g.device)
     route = route_for(g.dtype)
     lib = build()["dw"]
-    if route == TENSOR_CORE:
-        _launch(K2_DW, route, lib.mopa_subm_conv_dw_tc, g.device, feats, g,
-                ranks, sel, partial, out, v, cin, cout, ranges, rows,
-                *dw_tiling(cin, cout))
-    else:
-        _launch(K2_DW, route, lib.mopa_subm_conv_dw_f32, g.device, feats, g,
-                ranks, sel, partial, out, v, cin, cout, ranges, rows)
+    fn = lib.mopa_subm_conv_dw_tc if route == TENSOR_CORE \
+        else lib.mopa_subm_conv_dw_f32
+    _launch(K2_DW, route, fn, g.device, feats, g, ranks, sel, partial, out,
+            v, cin, cout, ranges, rows, *dw_tiling(cin, cout))
     return out

@@ -44,7 +44,10 @@ WARMUP = 3
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit); the bounds
 # of chip_smoke.py's conv kernels read them too.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# float32 on the CUDA cores; bfloat16 on the tensor cores; float32-accurate
+# products as 3xTF32, three TF32 MMAs each: 495 / 3 TFLOP/s
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,
+              "float32_3xtf32": 495e12 / 3}
 
 
 def make_inputs(s: int = S, v: int = V, c: int = C, cout: int = COUT,

@@ -289,12 +289,13 @@ class _FakeLib:
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, scc.TENSOR_CORE),
-                                         (torch.float32, scc.CUDA_CORE)])
+                                         (torch.float32, scc.TF32X3)])
 def test_wrappers_choose_the_route_by_dtype(level, monkeypatch, dtype,
                                             route):
-    """bfloat16 calls the tensor-core entry points (with the tile shape,
-    the mirror flag and the d_w tiling), float32 the CUDA-core ones; each
-    launch counts once under its kernel and route."""
+    """bfloat16 calls the tensor-core entry points, float32 the 3xTF32 ones
+    (with a (9, 2, NP, KP) scratch for the weight's split pack), both with
+    the tile shape, the mirror flag and the d_w tiling; each launch counts
+    once under its kernel and route."""
     lv, _ = level
     v = lv.valid.shape[0]
     cin, cout = 24, 40
@@ -321,22 +322,19 @@ def test_wrappers_choose_the_route_by_dtype(level, monkeypatch, dtype,
     if route == scc.TENSOR_CORE:
         assert (fwd_name, bwd_name, dw_name) == (
             "mopa_subm_conv_tc", "mopa_subm_conv_tc", "mopa_subm_conv_dw_tc")
-        assert fwd[5:] == (v, cin, cout, 0, *scc.conv_tile_shape(cin, cout),
-                           0)
-        assert bwd[5:] == (v, cout, cin, 1, *scc.conv_tile_shape(cout, cin),
-                           0)
-        assert dw[6:] == (v, cin, cout, ranges, rows,
-                          *scc.dw_tiling(cin, cout), 0)
     else:
         assert (fwd_name, bwd_name, dw_name) == (
             "mopa_subm_conv_f32", "mopa_subm_conv_f32",
             "mopa_subm_conv_dw_f32")
-        assert fwd[5:] == (v, cin, cout, 0, 0)
-        assert bwd[5:] == (v, cout, cin, 1, 0)
-        assert dw[6:] == (v, cin, cout, ranges, rows, 0)
+        # the pack's scratch between the weight and the output
+        fwd, bwd = fwd[:4] + fwd[5:], bwd[:4] + bwd[5:]
+    assert fwd[5:] == (v, cin, cout, 0, *scc.conv_tile_shape(cin, cout), 0)
+    assert bwd[5:] == (v, cout, cin, 1, *scc.conv_tile_shape(cout, cin), 0)
+    assert dw[6:] == (v, cin, cout, ranges, rows, *scc.dw_tiling(cin, cout),
+                      0)
     # the forward weight is passed in place in both modes
     assert fwd[3] == bwd[3] == w.data_ptr()
-    other = scc.CUDA_CORE if route == scc.TENSOR_CORE else scc.TENSOR_CORE
+    other = scc.TF32X3 if route == scc.TENSOR_CORE else scc.TENSOR_CORE
     for name in (scc.K1, scc.K2_DFEATS, scc.K2_DW):
         assert scc.launches[name] == 1
         assert scc.routes[name] == {route: 1, other: 0}

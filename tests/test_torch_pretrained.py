@@ -191,6 +191,9 @@ def test_environment_variable_names_the_file(files, jax_init, monkeypatch):
 
 def test_warning_without_a_weights_file(jax_init, monkeypatch, caplog):
     monkeypatch.delenv("MOPA_RESNET34_WEIGHTS", raising=False)
+    # setup_logger (the CLIs, common.get_logger) stops the package logger's
+    # propagation for the rest of the process; caplog listens on the root
+    monkeypatch.setattr(logging.getLogger("mopa_tpu_torch"), "propagate", True)
     _, pcfg = _cfgs("/nonexistent/resnet34.pth")
     assert port_trainer.resolve_resnet34_weights(pcfg) == ""
     models = port_trainer.build_models(pcfg, device="cpu")

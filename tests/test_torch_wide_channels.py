@@ -5,8 +5,10 @@ The kernels hold at most ``COUT_MAX`` (192) output columns per launch
 (``kCoutMax`` in ``csrc/``), so a wider output runs as near-equal column
 blocks, one launch each, on a packed slice of the weight (``d_w``: of the
 cotangent), stitched by ``torch.cat``. Here the library launch is stubbed
-by the plain twin applied to exactly the arguments a launch receives, so
-the slicing, the packing and the stitching are held:
+by the plain twin applied to exactly the arguments a launch receives (a
+float32 launch: by the emulation of its 3xTF32 sums,
+``test_torch_conv_f32_tc``, its conv on the pack it writes into its
+scratch), so the slicing, the packing and the stitching are held:
 
 * at SPVCNN's shapes (Cin 384 -> Cout 256, and 128 -> 256): K1,
   ``d_feats`` and ``d_w`` equal the unblocked twin (float32 to 1e-5 of the
@@ -30,6 +32,7 @@ from mopa_tpu.ops import sparse_conv as jsc
 from mopa_tpu_torch.ops import sparse_conv as psc
 from mopa_tpu_torch.ops import sparse_conv_cuda as scc
 
+from test_torch_conv_f32_tc import emulate_conv_3xtf32, emulate_dw_3xtf32
 from test_torch_conv_tc_layout import level  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
@@ -48,6 +51,11 @@ def twin_launches(monkeypatch):
     calls = []
 
     def launch(kernel, route, fn, device, *args):
+        if route == scc.TF32X3 and kernel != scc.K2_DW:
+            # the scratch the launch packs its weight block into, then sums
+            # in 3xTF32 from; recorded without it
+            pack = args[4]
+            args = args[:4] + args[5:]
         calls.append((kernel, route, args))
         scc.launches[kernel] += 1
         scc.routes[kernel][route] += 1
@@ -57,12 +65,18 @@ def twin_launches(monkeypatch):
             assert partial.shape[2:] == (cin, 3 * cout)
             assert (g.shape[1], out.shape) == (cout, (27, cin, cout))
             assert g.is_contiguous()
-            out.copy_(psc.submanifold_conv_wide_dw_ref(g, feats, ranks, sel))
+            out.copy_(emulate_dw_3xtf32(g, feats, ranks, sel)
+                      if route == scc.TF32X3
+                      else psc.submanifold_conv_wide_dw_ref(g, feats, ranks,
+                                                            sel))
             return
         rows, ranks, sel, weight, out, v, cin, width, mirror = args[:9]
         assert out.shape == (v, width) and weight.is_contiguous()
-        if route == scc.TENSOR_CORE:
-            assert args[9:] == scc.conv_tile_shape(cin, width)
+        assert args[9:] == scc.conv_tile_shape(cin, width)
+        if route == scc.TF32X3:
+            pack.copy_(scc.pack_weight_3xtf32(weight, mirror, *args[9:]))
+            out.copy_(emulate_conv_3xtf32(rows, ranks, sel, pack, width))
+            return
         ref = (psc.submanifold_conv_wide_dfeats_ref if mirror
                else psc.submanifold_conv_wide_ref)
         out.copy_(ref(rows, ranks, sel, weight).to(out.dtype))
@@ -93,6 +107,7 @@ def test_column_blocks():
 
 
 @pytest.mark.parametrize("cin,cout", [(384, 256), (128, 256)])
+# the float32 id is the name the route had before 3xTF32
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["cuda-core", "tensor-core"])
 def test_wide_conv_blocks_match_twin_and_jax(level, twin_launches, cin,
