@@ -20,8 +20,8 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from mopa_tpu_torch.common.spans import span
 from mopa_tpu_torch.data.pspath_sort import pspath_sort
 from mopa_tpu_torch.data.utils.evaluate import Evaluator
 from mopa_tpu_torch.models import losses as L
@@ -29,8 +29,8 @@ from mopa_tpu_torch.models.build import plan_levels
 from mopa_tpu_torch.train import trainer as trainer_mod
 from mopa_tpu_torch.train.common import decode_batch, device_batch
 
-# Names of the profiler ranges that mark the step's stages, in order. A
-# ``torch.profiler`` trace of one request splits its time by these.
+# Names of the spans (profiler ranges) that mark the step's stages, in
+# order. A ``torch.profiler`` trace of one request splits its time by these.
 STAGES = ("eval/decode", "eval/net2d", "eval/plan", "eval/net3d",
           "eval/heads_losses")
 
@@ -44,8 +44,8 @@ def make_eval_step(cfg, models: trainer_mod.Models):
     the 3D net, and returns per-point softmax probabilities (B*P, C) and the
     masked CE losses against ``seg_label``. SalsaNext builds no plan: it
     reads the batch's range images (``proj_in``) and gathers its logits at
-    each point's pixel (``proj_xy``). Each stage is one ``record_function``
-    range named in :data:`STAGES`.
+    each point's pixel (``proj_xy``). Each stage is one span
+    (``common.spans``) named in :data:`STAGES`.
     """
     device = next(models.model_2d.parameters()).device
     is_range = plan_levels(cfg) is None  # a range net: no voxel plan
@@ -55,25 +55,25 @@ def make_eval_step(cfg, models: trainer_mod.Models):
         decode, net2d, plan_range, net3d, heads = STAGES
         models.model_2d.eval()  # a train step may share the models
         models.model_3d.eval()
-        with record_function(decode):
+        with span(decode):
             batch = decode_batch(batch, device)
             valid = batch["point_valid"].reshape(-1)
-        with record_function(net2d):
+        with span(net2d):
             out2d = models.model_2d(batch["img"], batch["img_indices"],
                                     batch["point_valid"])
         if is_range:
-            with record_function(net3d):
+            with span(net3d):
                 out3d = models.model_3d(batch["feats"], None,
                                         proj_in=batch["proj_in"],
                                         proj_xy=batch["proj_xy"])
         else:
-            with record_function(plan_range):
+            with span(plan_range):
                 plan = trainer_mod.build_plan_from_batch(
                     cfg, batch["coords"], valid,
                     sample_size=batch["point_valid"].shape[1])
-            with record_function(net3d):
+            with span(net3d):
                 out3d = models.model_3d(batch["feats"], plan)
-        with record_function(heads):
+        with span(heads):
             probs_2d = torch.softmax(out2d["seg_logit"], dim=-1)
             probs_3d = torch.softmax(out3d["seg_logit"], dim=-1)
             labeled = valid & (batch["seg_label"] >= 0)

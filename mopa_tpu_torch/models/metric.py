@@ -7,18 +7,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mopa_tpu_torch.common.spans import span
+
 
 def confusion_matrix(logits: torch.Tensor, labels: torch.Tensor,
                      valid: torch.Tensor, num_classes: int) -> torch.Tensor:
     """(C, C) int64 counts of the valid, labelled points: rows = ground
-    truth, columns = the logits' argmax (``bincount(C * label + pred)``)."""
+    truth, columns = the logits' argmax (``bincount(C * label + pred)``).
+    On a card the bincount waits for the device twice (it reads the
+    least and the largest value on the host): span ``sync/cm_bincount``."""
     pred = logits.argmax(dim=-1)
     ok = valid & (labels >= 0) & (labels < num_classes)
     n2 = num_classes * num_classes
     flat = labels.long().clamp(0, num_classes - 1) * num_classes + pred
     flat = torch.where(ok, flat, torch.full_like(flat, n2))  # dump bucket
-    return torch.bincount(flat, minlength=n2 + 1)[:n2].reshape(
-        num_classes, num_classes)
+    with span("sync/cm_bincount"):
+        counts = torch.bincount(flat, minlength=n2 + 1)
+    return counts[:n2].reshape(num_classes, num_classes)
 
 
 class SegIoU:

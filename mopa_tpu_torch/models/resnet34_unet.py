@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mopa_tpu_torch.common.spans import span
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in the input's dtype (weights cast per call)."""
@@ -261,33 +263,36 @@ class UNetResNet34(nn.Module):
                 generator: torch.Generator | None = None):
         """(B, H, W, 3) -> (B, H, W, 64) in the compute dtype, with the depth
         head a pair (features, (B, H, W, 1) depth). In training,
-        ``generator`` draws the dropout masks."""
+        ``generator`` draws the dropout masks. Spans ``net2d/encoder`` and
+        ``net2d/decoder`` (the depth head with it)."""
         nd = n_domains
         p = self.dropout_rate if self.training else 0.0
         h, w = img.shape[1], img.shape[2]
         pad_h, pad_w = (-h) % 16, (-w) % 16
-        x = F.pad(img, (0, 0, 0, pad_w, 0, pad_h))
-        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        x = torch.relu(self.bn1(self.conv1(x), nd))
-        inter = [x]
-        x = F.max_pool2d(x, 3, 2, 1)
-        x = self.layer1(x, nd)
-        inter.append(x)
-        x = self.layer2(x, nd)
-        inter.append(x)
-        x = dropout(self.layer3(x, nd), p, generator)
-        inter.append(x)
-        x = dropout(self.layer4(x, nd), p, generator)
-        x = self.dec_t_conv_stage5(x, nd)
-        x = self.dec_conv_stage4(torch.cat([inter[3], x], dim=1), nd)
-        x = self.dec_t_conv_stage4(x, nd)
-        x = self.dec_conv_stage3(torch.cat([inter[2], x], dim=1), nd)
-        x = self.dec_t_conv_stage3(x, nd)
-        x = self.dec_conv_stage2(torch.cat([inter[1], x], dim=1), nd)
-        x = self.dec_t_conv_stage2(x, nd)
-        x = self.dec_conv_stage1(torch.cat([inter[0], x], dim=1))
-        x = x[:, :, :h, :w]
-        if self.depth_head is None:
-            return x.permute(0, 2, 3, 1)
-        return (x.permute(0, 2, 3, 1),
-                self.depth_head(x, nd).permute(0, 2, 3, 1))
+        with span("net2d/encoder", trace=False):
+            x = F.pad(img, (0, 0, 0, pad_w, 0, pad_h))
+            x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+            x = torch.relu(self.bn1(self.conv1(x), nd))
+            inter = [x]
+            x = F.max_pool2d(x, 3, 2, 1)
+            x = self.layer1(x, nd)
+            inter.append(x)
+            x = self.layer2(x, nd)
+            inter.append(x)
+            x = dropout(self.layer3(x, nd), p, generator)
+            inter.append(x)
+            x = dropout(self.layer4(x, nd), p, generator)
+        with span("net2d/decoder", trace=False):
+            x = self.dec_t_conv_stage5(x, nd)
+            x = self.dec_conv_stage4(torch.cat([inter[3], x], dim=1), nd)
+            x = self.dec_t_conv_stage4(x, nd)
+            x = self.dec_conv_stage3(torch.cat([inter[2], x], dim=1), nd)
+            x = self.dec_t_conv_stage3(x, nd)
+            x = self.dec_conv_stage2(torch.cat([inter[1], x], dim=1), nd)
+            x = self.dec_t_conv_stage2(x, nd)
+            x = self.dec_conv_stage1(torch.cat([inter[0], x], dim=1))
+            x = x[:, :, :h, :w]
+            if self.depth_head is None:
+                return x.permute(0, 2, 3, 1)
+            return (x.permute(0, 2, 3, 1),
+                    self.depth_head(x, nd).permute(0, 2, 3, 1))

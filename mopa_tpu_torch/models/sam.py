@@ -35,7 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
+
+from mopa_tpu_torch.common.spans import span
 
 VARIANTS = {
     "vit_b": dict(depth=12, dim=768, heads=12, global_idx=(2, 5, 8, 11)),
@@ -47,7 +48,7 @@ PATCH = 16
 # Prompts decoded at once by generate_mask_id_map (segment-anything's
 # points_per_batch); each prompt's decode is independent of the others.
 DECODE_CHUNK = 64
-# record_function ranges of generate_mask_id_map.
+# spans (profiler ranges) of generate_mask_id_map.
 STAGES = ("sam/encode", "sam/decode", "sam/rasterize")
 
 
@@ -585,10 +586,10 @@ def grid_masks(model: SAM, image, points_per_side: int, img_size: int
     dev = next(model.parameters()).device
     image = torch.as_tensor(image, dtype=torch.float32, device=dev)
     grid = point_grid(points_per_side, img_size, dev)
-    with record_function(STAGES[0]):
+    with span(STAGES[0]):
         emb = model.encode(image[None])
     masks, scores = [], []
-    with record_function(STAGES[1]):
+    with span(STAGES[1]):
         for start in range(0, grid.shape[0], DECODE_CHUNK):
             pts = grid[start:start + DECODE_CHUNK]
             c = pts.shape[0]
@@ -611,7 +612,7 @@ def rasterize_id_map(masks: torch.Tensor, scores: torch.Tensor,
     the areas), the first ``min(mask_budget, len(masks))`` written in
     order, so a smaller mask overwrites a larger one: (H, W) int32 ids,
     -100 where none is written."""
-    with record_function(STAGES[2]):
+    with span(STAGES[2]):
         ok = scores > iou_thresh
         areas = masks.sum(dim=(1, 2))
         key = torch.where(ok, areas, torch.full_like(areas, -1))

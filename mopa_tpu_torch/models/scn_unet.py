@@ -38,6 +38,7 @@ from typing import List, NamedTuple, Sequence
 import torch
 from torch import nn
 
+from mopa_tpu_torch.common.spans import span
 from mopa_tpu_torch.ops import sparse_conv as sc
 from mopa_tpu_torch.ops import voxel as voxel_ops
 
@@ -283,10 +284,14 @@ def plan_from_host_arrays(arrs: dict, capacities: Sequence[int],
     downe = arrs["downe"].long()
     nums = arrs["nums"].long()
     f2c_all = arrs["f2c"].long()
-    sel_lut = _SEL_BY_BITS.to(dev)
-    doms = None
-    if sample_domains is not None:
-        doms = torch.as_tensor(sample_domains, dtype=torch.int64, device=dev)
+    with span("sync/plan_upload"):
+        # two host constants copied to the card: each copy waits for the
+        # device's queue
+        sel_lut = _SEL_BY_BITS.to(dev)
+        doms = None
+        if sample_domains is not None:
+            doms = torch.as_tensor(sample_domains, dtype=torch.int64,
+                                   device=dev)
     col_shift = 3 * torch.arange(8, device=dev)
     octant = torch.arange(8, device=dev)
 
@@ -421,6 +426,13 @@ def concat_plans(plans: Sequence[UNetPlan]) -> UNetPlan:
         point_end=point_end, point_perm=point_perm)
 
 
+def level_spans(num_levels: int) -> tuple:
+    """(down, up) span names of a UNet's levels: a level's blocks before
+    the coarser level, and after it."""
+    return tuple(("net3d/down{}".format(l), "net3d/up{}".format(l))
+                 for l in range(num_levels))
+
+
 def apply_submanifold(x: torch.Tensor, lv: LevelPlan,
                       weight: torch.Tensor) -> torch.Tensor:
     """Submanifold conv through whichever plan form the level carries: the
@@ -439,7 +451,8 @@ class _BN(nn.Module):
     """Masked BatchNorm(+ReLU) over active voxels (eps 1e-4, momentum 0.9):
     running statistics in eval mode, batch statistics (per domain when the
     plan carries domains) in training mode, which also updates the running
-    buffers. Names follow the reference: scale, bias, mean, var."""
+    buffers. Names follow the reference: scale, bias, mean, var. One
+    ``net3d/bn`` span a call."""
 
     def __init__(self, features: int, leakiness: float = 0.0,
                  act: bool = True, eps: float = 1e-4):
@@ -454,11 +467,12 @@ class _BN(nn.Module):
 
     def forward(self, x: torch.Tensor, lv: LevelPlan,
                 n_domains: int = 1) -> torch.Tensor:
-        return sc.batch_norm_act(x, self.scale, self.bias, self.mean,
-                                 self.var, training=self.training,
-                                 valid=lv.valid, dom=lv.dom,
-                                 n_domains=n_domains, eps=self.eps,
-                                 leakiness=self.leakiness, act=self.act)
+        with span("net3d/bn", trace=False):
+            return sc.batch_norm_act(x, self.scale, self.bias, self.mean,
+                                     self.var, training=self.training,
+                                     valid=lv.valid, dom=lv.dom,
+                                     n_domains=n_domains, eps=self.eps,
+                                     leakiness=self.leakiness, act=self.act)
 
 
 def _conv_weight(shape, generator) -> nn.Parameter:
@@ -491,6 +505,7 @@ class SparseUNet(nn.Module):
                 "shipped configs use VGG-style blocks with block_reps=1")
         self.compute_dtype = compute_dtype
         self.planes = [(i + 1) * m for i in range(num_planes)]
+        self.span_names = level_spans(num_planes)
         self.stem = _conv_weight((27, in_channels, m), generator)
         for l, p in enumerate(self.planes):
             self.add_module(f"l{l}_bn1", _BN(p))
@@ -531,19 +546,26 @@ class SparseUNet(nn.Module):
 
     def _level(self, l: int, x: torch.Tensor, plan: UNetPlan,
                n_domains: int) -> torch.Tensor:
+        """Level ``l``'s blocks: the part before the next level (span
+        ``net3d/down{l}``), the next level, then the part after it
+        (``net3d/up{l}``)."""
         lv = plan.levels[l]
-        x = getattr(self, f"l{l}_bn1")(x, lv, n_domains)
-        x = apply_submanifold(x, lv, getattr(self, f"l{l}_conv1"))
-        if l + 1 < len(self.planes):
+        last = l + 1 == len(self.planes)
+        down, up = self.span_names[l]
+        with span(down, trace=False):
+            x = getattr(self, f"l{l}_bn1")(x, lv, n_domains)
+            x = apply_submanifold(x, lv, getattr(self, f"l{l}_conv1"))
+            if last:
+                return x
             nxt = plan.levels[l + 1]
             skip = x
             y = getattr(self, f"l{l}_bn_down")(x, lv, n_domains)
             y = sc.strided_conv(y, nxt.down_nbr, getattr(self, f"l{l}_down"))
-            y = self._level(l + 1, y, plan, n_domains)
+        y = self._level(l + 1, y, plan, n_domains)
+        with span(up, trace=False):
             y = getattr(self, f"l{l}_bn_up")(y, nxt, n_domains)
             y = sc.deconv(y, nxt.f2c, nxt.up_off, getattr(self, f"l{l}_up"),
                           lv.valid)
             x = getattr(self, f"l{l}_bn2")(torch.cat([skip, y], dim=-1), lv,
                                            n_domains)
-            x = apply_submanifold(x, lv, getattr(self, f"l{l}_conv2"))
-        return x
+            return apply_submanifold(x, lv, getattr(self, f"l{l}_conv2"))

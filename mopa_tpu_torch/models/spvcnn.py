@@ -29,9 +29,10 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
+from mopa_tpu_torch.common.spans import span
 from mopa_tpu_torch.models.resnet34_unet import dropout, init_weights
 from mopa_tpu_torch.models.scn_unet import (_BN, UNetPlan, _conv_weight,
-                                            apply_submanifold)
+                                            apply_submanifold, level_spans)
 from mopa_tpu_torch.ops import sparse_conv as sc
 
 # torchsparse's SPVCNN channel schedule (cr = 1.0)
@@ -124,6 +125,7 @@ class SPVCNN(nn.Module):
         self.cs = cs
         self.dropout = dropout
         self.compute_dtype = compute_dtype
+        self.span_names = level_spans(NUM_LEVELS)
         self.stem1 = _conv_weight((27, in_channels, cs[0]), generator)
         self.stem_bn1 = _BN(cs[0])
         self.stem2 = _conv_weight((27, cs[0], cs[0]), generator)
@@ -179,20 +181,23 @@ class SPVCNN(nn.Module):
 
         z = point_feats.to(self.compute_dtype)
         cap0 = lv[0].valid.shape[0]
-        x0 = apply_submanifold(point_to_voxel(z, pmaps[0], cap0), lv[0],
-                               self.stem1)
-        x0 = self.stem_bn1(x0, lv[0], nd)
-        x0 = self.stem_bn2(apply_submanifold(x0, lv[0], self.stem2), lv[0],
-                           nd)
+        with span(self.span_names[0][0], trace=False):
+            x0 = apply_submanifold(point_to_voxel(z, pmaps[0], cap0), lv[0],
+                                   self.stem1)
+            x0 = self.stem_bn1(x0, lv[0], nd)
+            x0 = self.stem_bn2(apply_submanifold(x0, lv[0], self.stem2),
+                               lv[0], nd)
         z0 = voxel_to_point(x0, pmaps[0])
 
         skips = [x0]
         x = point_to_voxel(z0, pmaps[0], cap0)
         for i in range(1, 5):
-            y = sc.strided_conv(x, lv[i].down_nbr, getattr(self, f"down{i}"))
-            y = getattr(self, f"down_bn{i}")(y, lv[i], nd)
-            y = getattr(self, f"res{i}a")(y, lv[i], nd)
-            y = getattr(self, f"res{i}b")(y, lv[i], nd)
+            with span(self.span_names[i][0], trace=False):
+                y = sc.strided_conv(x, lv[i].down_nbr,
+                                    getattr(self, f"down{i}"))
+                y = getattr(self, f"down_bn{i}")(y, lv[i], nd)
+                y = getattr(self, f"res{i}a")(y, lv[i], nd)
+                y = getattr(self, f"res{i}b")(y, lv[i], nd)
             skips.append(y)
             x = y
 
@@ -217,12 +222,14 @@ class SPVCNN(nn.Module):
     def _up_stage(self, feats: torch.Tensor, lv: tuple, l: int,
                   skip: torch.Tensor, nd: int) -> torch.Tensor:
         """Deconv from plan level l to l - 1, BN, the skip concat and two
-        residual blocks (decoder stage ``5 - l``)."""
+        residual blocks (decoder stage ``5 - l``; span ``net3d/up{l-1}``,
+        named by the level it ends at as the SCN UNet's)."""
         tag = str(5 - l)
         nxt, fine = lv[l], lv[l - 1]
-        y = sc.deconv(feats, nxt.f2c, nxt.up_off, getattr(self, f"up{tag}"),
-                      fine.valid)
-        y = getattr(self, f"up_bn{tag}")(y, fine, nd)
-        y = _promoted_cat(y, skip)
-        y = getattr(self, f"upres{tag}a")(y, fine, nd)
-        return getattr(self, f"upres{tag}b")(y, fine, nd)
+        with span(self.span_names[l - 1][1], trace=False):
+            y = sc.deconv(feats, nxt.f2c, nxt.up_off,
+                          getattr(self, f"up{tag}"), fine.valid)
+            y = getattr(self, f"up_bn{tag}")(y, fine, nd)
+            y = _promoted_cat(y, skip)
+            y = getattr(self, f"upres{tag}a")(y, fine, nd)
+            return getattr(self, f"upres{tag}b")(y, fine, nd)

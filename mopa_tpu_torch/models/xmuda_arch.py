@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mopa_tpu_torch.common.spans import span
 from mopa_tpu_torch.models.resnet34_unet import UNetResNet34, init_weights
 from mopa_tpu_torch.models.salsanext import SalsaNext
 from mopa_tpu_torch.models.scn_unet import SparseUNet, UNetPlan
@@ -65,19 +66,22 @@ class Net2DSeg(nn.Module):
         Returns 'feats' (B*P, 64), 'seg_logit' (B*P, C), with the dual head
         'seg_logit2', with ``output_all`` 'seg_logit_all' (B, H, W, C), and
         with ``depth_pred`` 'depth_pred' (B, H, W, 1) float32.
-        ``generator`` draws the training-mode dropout masks."""
+        ``generator`` draws the training-mode dropout masks. Spans
+        ``net2d/lift`` (the features at the points) and ``net2d/heads``."""
         x = self.net_2d(img, n_domains, generator)
         b, p = img_indices.shape[:2]
         preds = {}
         if self.depth_pred:
             x, preds["depth_pred"] = x
-        if self.output_all:
-            preds["seg_logit_all"] = self.linear(x.float())
-        feats = lift_image_feats(x, img_indices, point_valid)
-        feats = feats.float().reshape(b * p, -1)
-        preds.update(feats=feats, seg_logit=self.linear(feats))
-        if self.linear2 is not None:
-            preds["seg_logit2"] = self.linear2(feats)
+        with span("net2d/lift", trace=False):
+            feats = lift_image_feats(x, img_indices, point_valid)
+            feats = feats.float().reshape(b * p, -1)
+        with span("net2d/heads", trace=False):
+            if self.output_all:
+                preds["seg_logit_all"] = self.linear(x.float())
+            preds.update(feats=feats, seg_logit=self.linear(feats))
+            if self.linear2 is not None:
+                preds["seg_logit2"] = self.linear2(feats)
         return preds
 
 

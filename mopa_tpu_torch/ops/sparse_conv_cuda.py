@@ -56,6 +56,8 @@ from pathlib import Path
 
 import torch
 
+from mopa_tpu_torch.common import spans
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"conv": _PKG / "csrc" / "submanifold_conv.cu",
            "dw": _PKG / "csrc" / "submanifold_conv_dw.cu",
@@ -95,6 +97,9 @@ MAX_RANGES = 128
 launches = {K1: 0, K2_DFEATS: 0, K2_DW: 0, P1: 0, P2: 0}
 routes = {name: {TENSOR_CORE: 0, TF32X3: 0}
           for name in (K1, K2_DFEATS, K2_DW)}
+# the record of ``common.spans`` copies the counts at each step's start and
+# end
+spans.counter("launches", launches)
 
 _libs: dict | None = None
 

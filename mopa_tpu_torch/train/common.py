@@ -36,6 +36,7 @@ from mopa_tpu_torch.common.config import purge_cfg
 from mopa_tpu_torch.common.metric_logger import MetricLogger, iou_to_excel
 from mopa_tpu_torch.common.rng import set_random_seed
 from mopa_tpu_torch.common.run_ahead import run_ahead
+from mopa_tpu_torch.common.spans import span
 from mopa_tpu_torch.config.xmuda import cfg as default_cfg
 from mopa_tpu_torch.data.build import build_dataloader
 from mopa_tpu_torch.models.metric import SegIoU
@@ -288,12 +289,14 @@ def prepare_output_dir(cfg, args):
 
 
 def host_metrics(metrics: dict) -> dict:
-    """A step's metrics on the host as numpy, in one device -> host copy:
-    the 0-d metrics and the confusion matrices go out stacked as float64
-    (exact for counts below 2**53) and come back in their own dtypes."""
+    """A step's metrics on the host as numpy, in one device -> host copy
+    (span ``sync/metrics_to_host``): the 0-d metrics and the confusion
+    matrices go out stacked as float64 (exact for counts below 2**53) and
+    come back in their own dtypes."""
     names = list(metrics)
     flat = torch.cat([metrics[k].reshape(-1).double() for k in names])
-    host = flat.cpu().numpy()
+    with span("sync/metrics_to_host"):
+        host = flat.cpu().numpy()
     out, i = {}, 0
     for k in names:
         t = metrics[k]
@@ -332,7 +335,9 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
     return an empty ``eval_dict``).
 
     The loop's ``time`` meter is each iteration's wall time up to its
-    metrics on the host (the step's device work included). Loaders and
+    metrics on the host (the step's device work included), its ``data``
+    meter the part of it spent waiting for the next batch of both streams
+    (span ``loop/next_batch``). Loaders and
     their prefetch threads are closed at the EMA switch, at the end and
     on an exception."""
     # trainer and validate import this module (decode_batch)
@@ -453,8 +458,10 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
                 in_ema = True
                 _close(src_iter, trg_iter)
                 src_iter, trg_iter = streams(iteration, True)
-            batch_src = next(src_iter)
-            batch_trg = next(trg_iter) if has_trg else batch_src
+            with span("loop/next_batch"):
+                batch_src = next(src_iter)
+                batch_trg = next(trg_iter) if has_trg else batch_src
+            data_time = time.time() - end
 
             if iteration >= ema_start:
                 if step_ema is None:
@@ -470,7 +477,8 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
             batch_time = time.time() - end
             metric_2d.update_mat(metrics.pop("cm_src_2d"))
             metric_3d.update_mat(metrics.pop("cm_src_3d"))
-            train_metric_logger.update(time=batch_time, **metrics)
+            train_metric_logger.update(time=batch_time, data=data_time,
+                                       **metrics)
 
             if cur_iter == 1 or (cfg.TRAIN.LOG_PERIOD > 0
                                  and cur_iter % cfg.TRAIN.LOG_PERIOD == 0):

@@ -56,10 +56,10 @@ import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from mopa_tpu_torch.common.solver import (OptimizerSpec, ScheduledOptimizer,
                                           build_optimizer)
+from mopa_tpu_torch.common.spans import span
 from mopa_tpu_torch.data.utils.refine_pseudo_labels import \
     refine_pseudo_labels
 from mopa_tpu_torch.models import losses as L
@@ -76,7 +76,8 @@ from mopa_tpu_torch.ops import mixmatch
 from mopa_tpu_torch.parallel import mesh as mesh_mod
 from mopa_tpu_torch.train.common import decode_batch, is_ema_key
 
-# Names of the profiler ranges that mark the train step's stages, in order.
+# Names of the spans (profiler ranges) that mark the train step's stages, in
+# order.
 TRAIN_STAGES = ("train/decode", "train/vgi", "train/plan", "train/net2d",
                 "train/net3d", "train/losses", "train/backward",
                 "train/allreduce", "train/optim", "train/ema")
@@ -84,6 +85,8 @@ TRAIN_STAGES = ("train/decode", "train/vgi", "train/plan", "train/net2d",
 # phase.
 TEACHER_STAGES = ("teacher/decode", "teacher/plan", "teacher/net2d",
                   "teacher/net3d", "teacher/refine")
+# The span around a whole step (teacher and student), of id ``state.step``.
+STEP_SPAN = "train/step"
 
 
 def _num_levels(cfg) -> int:
@@ -168,31 +171,38 @@ def build_train_plan(cfg, batch_src: dict, batch_trg: dict,
     doms = [0] * b + [1] * b
     with torch.no_grad():
         if "hp_rankn" in batch_src and "hp_rankn" in batch_trg:
-            plan = plan_from_host_arrays(
-                {k: torch.cat([batch_src["hp_" + k], batch_trg["hp_" + k]])
-                 for k in HOST_PLAN_KEYS}, _capacities(cfg, p), num_levels,
-                sample_domains=doms)
+            with span("plan/decode", trace=False):
+                plan = plan_from_host_arrays(
+                    {k: torch.cat([batch_src["hp_" + k],
+                                   batch_trg["hp_" + k]])
+                     for k in HOST_PLAN_KEYS}, _capacities(cfg, p),
+                    num_levels, sample_domains=doms)
         else:
-            plan = build_unet_plan_batched(
-                torch.cat([batch_src["coords"],
-                           batch_trg["coords"]]).reshape(2 * b, p, 3),
-                torch.cat([batch_src["point_valid"],
-                           batch_trg["point_valid"]]),
-                num_levels, capacities=_capacities(cfg, p),
-                sample_domains=doms)
+            with span("plan/build", trace=False):
+                plan = build_unet_plan_batched(
+                    torch.cat([batch_src["coords"],
+                               batch_trg["coords"]]).reshape(2 * b, p, 3),
+                    torch.cat([batch_src["point_valid"],
+                               batch_trg["point_valid"]]),
+                    num_levels, capacities=_capacities(cfg, p),
+                    sample_domains=doms)
         if not with_vgi:
             return plan, None
         if device_cat is not None:
             cat, cat_plan = device_cat
+        else:
+            valid = batch_trg["cat_valid"].reshape(-1)
+            cat = {"valid": valid,
+                   "label": batch_trg["cat_label"].reshape(-1),
+                   "obj_mask": batch_trg["cat_obj_mask"].reshape(-1),
+                   "feats": torch.ones((valid.shape[0], 1),
+                                       device=valid.device)}
+            with span("plan/decode", trace=False):
+                cat_plan = _host_plan(batch_trg, "hp_cat_",
+                                      _capacities(cfg, valid.shape[0] // b),
+                                      num_levels, sample_domains=[2] * b)
+        with span("plan/concat", trace=False):
             return concat_plans([plan, cat_plan]), cat
-        valid = batch_trg["cat_valid"].reshape(-1)
-        cat = {"valid": valid, "label": batch_trg["cat_label"].reshape(-1),
-               "obj_mask": batch_trg["cat_obj_mask"].reshape(-1),
-               "feats": torch.ones((valid.shape[0], 1), device=valid.device)}
-        cat_plan = _host_plan(batch_trg, "hp_cat_",
-                              _capacities(cfg, valid.shape[0] // b),
-                              num_levels, sample_domains=[2] * b)
-        return concat_plans([plan, cat_plan]), cat
 
 
 class Models(NamedTuple):
@@ -304,18 +314,18 @@ def teacher_forward(cfg, models: Models, state: TrainState, batch: dict):
     models.model_2d.eval()
     models.model_3d.eval()
     with torch.no_grad():
-        with record_function(plan_r):
+        with span(plan_r):
             if "hp_ori_rankn" in batch:
                 plan = _host_plan(batch, "hp_ori_", _capacities(cfg, p),
                                   _num_levels(cfg))
             else:
                 plan = build_plan_from_batch(cfg, batch["ori_coords"],
                                              valid.reshape(-1), p)
-        with record_function(net2d):
+        with span(net2d):
             out2d = functional_call(models.model_2d, state.ema_params_2d,
                                     (batch["ori_img"],
                                      batch["ori_img_indices"], valid))
-        with record_function(net3d):
+        with span(net3d):
             out3d = functional_call(models.model_3d, state.ema_params_3d,
                                     (batch["ori_feats"], plan))
         return (torch.softmax(out2d["seg_logit"].float(), dim=-1),
@@ -380,8 +390,9 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
     ``metrics`` maps names to device tensors (losses, ``total_loss``, the
     int64 confusion matrices ``cm_src_2d``/``cm_src_3d``, and with VGI
     ``pc_mm_acc`` and ``vgi_inserted``, with ``TRAIN.DEPTH_PRED``
-    ``depth_pred_loss``). Each stage is one ``record_function``
-    range named in :data:`TRAIN_STAGES` (and :data:`TEACHER_STAGES`). With
+    ``depth_pred_loss``). The step is one :data:`STEP_SPAN` span
+    (``common.spans``) of id ``state.step``, and each stage one span
+    named in :data:`TRAIN_STAGES` (and :data:`TEACHER_STAGES`). With
     ``with_ema`` the returned step exposes its halves as ``.teacher_step(state,
     batch_trg) -> (pl_2d, pl_3d)`` (int16) and ``.student_step``.
 
@@ -441,10 +452,11 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         src_valid = batch_src["point_valid"].reshape(-1)
         seg_label = batch_src["seg_label"]
         labelled = src_valid & (seg_label >= 0)
-        loss_src_2d = L.cross_entropy(src_2d["seg_logit"], seg_label,
-                                      labelled, class_weights)
-        loss_src_3d = L.cross_entropy(src_3d["seg_logit"], seg_label,
-                                      labelled, class_weights)
+        with span("loss/ce", trace=False):
+            loss_src_2d = L.cross_entropy(src_2d["seg_logit"], seg_label,
+                                          labelled, class_weights)
+            loss_src_3d = L.cross_entropy(src_3d["seg_logit"], seg_label,
+                                          labelled, class_weights)
         metrics["loss_src_2d"] = loss_src_2d
         metrics["loss_src_3d"] = loss_src_3d
         total = loss_src_2d + loss_src_3d
@@ -452,8 +464,11 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         if with_xm_src:
             s2 = src_2d["seg_logit2" if dual_head else "seg_logit"]
             s3 = src_3d["seg_logit2" if dual_head else "seg_logit"]
-            xm_2d = L.xm_kl_div(s2, src_3d["seg_logit"].detach(), src_valid)
-            xm_3d = L.xm_kl_div(s3, src_2d["seg_logit"].detach(), src_valid)
+            with span("loss/xm", trace=False):
+                xm_2d = L.xm_kl_div(s2, src_3d["seg_logit"].detach(),
+                                    src_valid)
+                xm_3d = L.xm_kl_div(s3, src_2d["seg_logit"].detach(),
+                                    src_valid)
             metrics["xm_loss_src_2d"] = xm_2d
             metrics["xm_loss_src_3d"] = xm_3d
             total = total + lam.lambda_xm_src * (xm_2d + xm_3d)
@@ -464,7 +479,7 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
             metrics["depth_pred_loss"] = depth_loss
             total = total + lambda_dp_src * depth_loss
 
-        with torch.no_grad():
+        with span("loss/cm", trace=False), torch.no_grad():
             metrics["cm_src_2d"] = confusion_matrix(
                 src_2d["seg_logit"], seg_label, src_valid, num_classes)
             metrics["cm_src_3d"] = confusion_matrix(
@@ -474,8 +489,11 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         if with_xm_trg:
             t2 = trg_2d["seg_logit2" if dual_head else "seg_logit"]
             t3 = trg_3d["seg_logit2" if dual_head else "seg_logit"]
-            xm_2d = L.xm_kl_div(t2, trg_3d["seg_logit"].detach(), trg_valid)
-            xm_3d = L.xm_kl_div(t3, trg_2d["seg_logit"].detach(), trg_valid)
+            with span("loss/xm", trace=False):
+                xm_2d = L.xm_kl_div(t2, trg_3d["seg_logit"].detach(),
+                                    trg_valid)
+                xm_3d = L.xm_kl_div(t3, trg_2d["seg_logit"].detach(),
+                                    trg_valid)
             metrics["xm_loss_trg_2d"] = xm_2d
             metrics["xm_loss_trg_3d"] = xm_3d
             total = total + lam.lambda_xm_trg * (xm_2d + xm_3d)
@@ -483,40 +501,46 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         if with_pl:
             pl_2d = batch_trg["pseudo_label_2d"].reshape(-1)
             pl_3d = batch_trg["pseudo_label_3d"].reshape(-1)
-            pl_loss_2d = L.cross_entropy(trg_2d["seg_logit"], pl_2d,
-                                         trg_valid & (pl_2d >= 0), pl_weights)
-            pl_loss_3d = L.cross_entropy(trg_3d["seg_logit"], pl_3d,
-                                         trg_valid & (pl_3d >= 0), pl_weights)
+            with span("loss/pl", trace=False):
+                pl_loss_2d = L.cross_entropy(trg_2d["seg_logit"], pl_2d,
+                                             trg_valid & (pl_2d >= 0),
+                                             pl_weights)
+                pl_loss_3d = L.cross_entropy(trg_3d["seg_logit"], pl_3d,
+                                             trg_valid & (pl_3d >= 0),
+                                             pl_weights)
             metrics["pl_loss_trg_2d"] = pl_loss_2d
             metrics["pl_loss_trg_3d"] = pl_loss_3d
             total = total + lam.lambda_pl * (pl_loss_2d + pl_loss_3d)
 
         if with_minent:
-            me = L.entropy_loss(torch.softmax(trg_2d["seg_logit"], dim=-1),
-                                trg_valid)
-            me3 = L.entropy_loss(torch.softmax(trg_3d["seg_logit"], dim=-1),
-                                 trg_valid)
+            with span("loss/minent", trace=False):
+                me = L.entropy_loss(torch.softmax(trg_2d["seg_logit"],
+                                                  dim=-1), trg_valid)
+                me3 = L.entropy_loss(torch.softmax(trg_3d["seg_logit"],
+                                                   dim=-1), trg_valid)
             metrics["minent_2d"] = me
             metrics["minent_3d"] = me3
             total = total + lam.lambda_minent * (me + me3)
 
         if with_sam:
-            probs_all = torch.softmax(out2d["seg_logit_all"][b:], dim=-1)
-            sam = L.mask_cons_loss(probs_all, batch_trg["sam_mask"],
-                                   mask_budget, min_entropy=True)
+            with span("loss/sam", trace=False):
+                probs_all = torch.softmax(out2d["seg_logit_all"][b:], dim=-1)
+                sam = L.mask_cons_loss(probs_all, batch_trg["sam_mask"],
+                                       mask_budget, min_entropy=True)
             metrics["sam_cons_loss"] = sam
             total = total + pc_mm.lambda_sam_cons * sam
 
         if cat is not None:
             cat_logit = out3d["seg_logit"][2 * npnt:]
-            vgi_loss = L.cross_entropy(cat_logit, cat["label"],
-                                       cat["valid"] & (cat["label"] >= 0),
-                                       pl_weights)
-            with torch.no_grad():
-                obj = cat["obj_mask"] & cat["valid"]
-                hit = (cat_logit.argmax(dim=-1) == cat["label"]) & obj
-                metrics["pc_mm_acc"] = hit.sum() / obj.sum().clamp(min=1)
-                metrics["vgi_inserted"] = obj.sum()
+            with span("loss/vgi", trace=False):
+                vgi_loss = L.cross_entropy(cat_logit, cat["label"],
+                                           cat["valid"] & (cat["label"] >= 0),
+                                           pl_weights)
+                with torch.no_grad():
+                    obj = cat["obj_mask"] & cat["valid"]
+                    hit = (cat_logit.argmax(dim=-1) == cat["label"]) & obj
+                    metrics["pc_mm_acc"] = hit.sum() / obj.sum().clamp(min=1)
+                    metrics["vgi_inserted"] = obj.sum()
             metrics["pc_mm_loss"] = vgi_loss
             total = total + pc_mm.lambda_pc_mm * vgi_loss
         metrics["total_loss"] = total
@@ -527,22 +551,22 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
          optim, ema) = TRAIN_STAGES
         model_2d.train()
         model_3d.train()
-        with record_function(decode):
+        with span(decode):
             batch_src = decode_batch(batch_src, device)
             batch_trg = decode_batch(batch_trg, device)
             b, p = batch_src["img_indices"].shape[:2]
         device_cat = None
         if with_vgi and "hp_cat_rankn" not in batch_trg:
-            with record_function(vgi_r):
+            with span(vgi_r):
                 device_cat = device_vgi(cfg, batch_trg, with_pl, state.rng)
         plan = cat = None
         if not is_range:
-            with record_function(plan_r):
+            with span(plan_r):
                 plan, cat = build_train_plan(cfg, batch_src, batch_trg,
                                              with_vgi, device_cat)
         state.opt_2d.zero_grad()
         state.opt_3d.zero_grad()
-        with record_function(net2d):
+        with span(net2d):
             out2d = model_2d(
                 torch.cat([batch_src["img"], batch_trg["img"]]),
                 torch.cat([batch_src["img_indices"],
@@ -550,7 +574,7 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
                 torch.cat([batch_src["point_valid"],
                            batch_trg["point_valid"]]),
                 n_domains=2, generator=state.rng)
-        with record_function(net3d):
+        with span(net3d):
             if is_range:
                 # back to back, each forward updating the running stats
                 outs = [model_3d(bt["feats"], None, proj_in=bt["proj_in"],
@@ -565,18 +589,18 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
                 out3d = model_3d(torch.cat(feats), plan,
                                  n_domains=2 if cat is None else 3,
                                  generator=state.rng)
-        with record_function(loss_r):
+        with span(loss_r):
             total, metrics = losses(out2d, out3d, batch_src, batch_trg, cat,
                                     b, p)
-        with record_function(backward):
+        with span(backward):
             total.backward()
         if mesh is not None:
-            with record_function(allreduce), torch.no_grad():
+            with span(allreduce), torch.no_grad():
                 metrics = sync_replicas(mesh, state, metrics)
-        with record_function(optim):
+        with span(optim):
             state.opt_2d.step()
             state.opt_3d.step()
-        with record_function(ema), torch.no_grad():
+        with span(ema), torch.no_grad():
             # 0 before ema_start_iter (the teacher tracks the student), then
             # ema_alpha every ema_update_period steps and 1 in between
             active = state.step >= ema_start
@@ -592,21 +616,23 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         return state, {k: v.detach() for k, v in metrics.items()}
 
     if not with_ema:
-        return train_step
+        return _step_span(train_step)
     ema_xm_prob = float(pc_mm.ema_xm_prob)
 
     def teacher_step(state: TrainState, batch_trg: dict):
         decode, *_, refine_r = TEACHER_STAGES
-        with record_function(decode):
+        with span(decode):
             batch = decode_batch({k: v for k, v in batch_trg.items()
                                   if is_ema_key(k)}, device)
             # one Bernoulli(ema_xm_prob) draw: the fused or the per-net labels
             u = torch.rand((), generator=state.rng, device=state.rng.device)
         probs_2d, probs_3d = teacher_forward(cfg, models, state, batch)
-        with record_function(refine_r):
+        with span(refine_r):
+            with span("sync/teacher_draw"):
+                use_xm = bool(u <= ema_xm_prob)
             pl_2d, pl_3d = teacher_labels(
                 probs_2d, probs_3d, batch["ori_point_valid"].reshape(-1),
-                batch["ema_map"], bool(u <= ema_xm_prob), num_classes)
+                batch["ema_map"], use_xm, num_classes)
             # the offline pseudo labels' wire dtype
             return pl_2d.to(torch.int16), pl_3d.to(torch.int16)
 
@@ -619,9 +645,19 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         src = {k: v for k, v in batch_src.items() if not is_ema_key(k)}
         return train_step(state, src, trg)
 
-    step_with_teacher.teacher_step = teacher_step
-    step_with_teacher.student_step = train_step
-    return step_with_teacher
+    step = _step_span(step_with_teacher)
+    step.teacher_step = teacher_step
+    step.student_step = _step_span(train_step)
+    return step
+
+
+def _step_span(fn):
+    """``fn(state, ...)`` inside the step's outermost span,
+    :data:`STEP_SPAN`, whose id is ``state.step``."""
+    def step(state: TrainState, *batches):
+        with span(STEP_SPAN, step=state.step):
+            return fn(state, *batches)
+    return step
 
 
 def sync_replicas(mesh, state: TrainState, metrics: dict) -> dict:

@@ -43,7 +43,8 @@ jit it (the resumed runs overwrite its values).
   the same strings, numbers within 1e-3.
 * The port alone: ``train()`` from scratch on the CPU (finite losses, the
   checkpoint files, the ring, the xlsx, no loader or prefetch thread left,
-  2 pool threads per loader), the baseline and xMUDA variants for 2
+  2 pool threads per loader, the loader wait as one ``loop/next_batch``
+  span an iteration and the log's ``data`` meter), the baseline and xMUDA variants for 2
   iterations, ``TPU.DATA_PARALLEL`` > 1 without a process group raising,
   ``parse_args`` /
   ``load_cfg`` equal to JAX's, and each CLI's ``main`` raising before it
@@ -69,6 +70,7 @@ from mopa_tpu.common.xlsx import read_xlsx_rows
 from mopa_tpu.models import torch_compat
 from mopa_tpu.train import common as jax_common
 from mopa_tpu.train import trainer as jax_trainer
+from mopa_tpu_torch.common import spans
 from mopa_tpu_torch.common.logger import setup_logger
 from mopa_tpu_torch.train import common
 from mopa_tpu_torch.train import trainer as port_trainer
@@ -385,9 +387,11 @@ def _scratch_run(run_dir):
             _, pcfg = smoke_cfgs(workers=2, **OPTS, **opts,
                                  **{"TRAIN.MAX_TO_KEEP": 1})
             del calls[:], loaders[:]
-            state, ev = common.train(pcfg, logger, run_dir, "run", "mopa",
-                                     device="cpu")
+            with spans.recording() as rec:
+                state, ev = common.train(pcfg, logger, run_dir, "run",
+                                         "mopa", device="cpu")
             out[run] = dict(
+                spans=list(rec.spans),
                 files=set(os.listdir(run_dir)), state=state, evals=ev,
                 calls=list(calls), loaders=list(loaders), alive=_alive(),
                 metrics=list(metrics),
@@ -423,6 +427,21 @@ def test_train_from_scratch(scratch_run):
     assert rows[1][-1] == round(run["evals"]["2D"].overall_iou, 4)
     assert "iter:    4" in run["log"]
     assert "Iteration[4]-Val" in run["log"]
+    assert "data: " in run["log"]
+
+
+def test_train_spans_the_loader_wait(scratch_run):
+    """Each iteration's wait for its batches is one ``loop/next_batch``
+    span, outside the step's ``train/step`` span, which carries the
+    state's step."""
+    for run, first in (("first", 0), ("second", 4)):
+        got = scratch_run[run]["spans"]
+        n = scratch_run[run]["state"].step - first
+        waits = [s for s in got if s.name == "loop/next_batch"]
+        steps = [s for s in got if s.name == port_trainer.STEP_SPAN]
+        assert len(waits) == n and [s.parent for s in waits] == [None] * n
+        assert [s.step for s in steps] == list(range(first, first + n))
+        assert all(w.end_ns <= s.start_ns for w, s in zip(waits, steps))
 
 
 def test_train_switches_to_the_ema_step(scratch_run):
