@@ -581,8 +581,8 @@ def float32_routes(tag: str) -> dict:
 
 # a kernel of the three libraries and its template arguments (int, then an
 # optional bool) in a mangled name
-_KERNEL_NAME = re.compile(r"(subm_conv_(?:dw_)?(?:(?:f32_)?tc_kernel|reduce"
-                          r"|f32_pack)"
+_KERNEL_NAME = re.compile(r"(subm_conv_(?:dw_)?(?:pairs_)?(?:(?:f32_)?tc_kernel"
+                          r"|reduce|f32_pack|count|write)"
                           r"|row_gather_kernel|gather_gemm_tc_kernel)"
                           r"(?:ILi(\d+)E(?:Lb([01])E)?)?")
 
@@ -3186,6 +3186,16 @@ def backbone_phase(device, report: dict, mopa_target) -> dict:
     plan = trainer.build_train_plan(cfg, decode_batch(src, device),
                                     decode_batch(trg, device), False)[0]
     out["spvcnn_rows_per_level"] = [lv.valid.shape[0] for lv in plan.levels]
+    # the float32 d_w's pair share per level, pairs / (27 V): the device
+    # lists' counts, read after a sync (the step never reads them)
+    out["spvcnn_pair_share"] = []
+    for lv in plan.levels:
+        v = lv.valid.shape[0]
+        counts = scc._dw_pair_lists_cuda(lv.ranks, lv.sel, v)[1]
+        torch.cuda.synchronize()
+        out["spvcnn_pair_share"].append(int(counts.sum()) / (27 * v))
+    print("SPVCNN plan rows per level {}, d_w pair share {}".format(
+        out["spvcnn_rows_per_level"], out["spvcnn_pair_share"]), flush=True)
     gen = torch.Generator(device=device).manual_seed(13)
     out["wide_rows"], out["conv_rows"] = [], []
     for name, level, cin, cout in spvcnn_conv_shapes():

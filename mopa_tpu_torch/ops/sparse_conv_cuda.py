@@ -17,13 +17,17 @@ Each has two routes, chosen by the dtype (:func:`route_for`):
   (``d_feats`` as W'[k] = W[26-k]^T, through ``ldmatrix``'s transpose);
 * ``cuda-3xtf32`` for float32, which the checking paths, the convergence
   run and SPVCNN's decoder use (float32 under a bfloat16 compute dtype, as
-  in the JAX package): the same gather feeding TF32 ``mma.sync`` in 3xTF32
-  (each operand split into a TF32 high and low part, three products
-  summed), so float32 stays within 1e-4 of the plain twins (TF32 alone
-  would not). K1 and ``d_feats`` take the forward weight in place too; the
-  library first packs it into a scratch, transposed (``ldmatrix`` cannot
-  transpose 32-bit elements) and already split
-  (:func:`pack_weight_3xtf32` is that pack in PyTorch).
+  in the JAX package): TF32 ``mma.sync`` in 3xTF32 (each operand split
+  into a TF32 high and low part, three products summed), so float32 stays
+  within 1e-4 of the plain twins (TF32 alone would not). K1 and
+  ``d_feats`` run the same gather and take the forward weight in place
+  too; the library first packs it into a scratch, transposed (``ldmatrix``
+  cannot transpose 32-bit elements) and already split
+  (:func:`pack_weight_3xtf32` is that pack in PyTorch). ``d_w`` runs over
+  the neighbour pairs that exist, offset by offset: the library first
+  lists them on the device (:func:`dw_pair_lists` is that list in
+  PyTorch), once per call, then each column block is a GEMM over each
+  offset's list.
 
 The sources are ``mopa_tpu_torch/csrc/submanifold_conv.cu`` (K1, K2
 ``d_feats``) and ``csrc/submanifold_conv_dw.cu`` (K2 ``d_w``), with the
@@ -86,9 +90,13 @@ TILE_M = 128
 K_STAGE = 32
 NT_CHOICES = (1, 2, 3, 4, 6, 8, 12)
 # d_w splits its voxel sum into ranges of about this many rows, at most
-# this many ranges, so the summation order is a function of V alone.
+# this many ranges, so the summation order is a function of V alone (the
+# float32 route: each offset's pairs into ranges of as many pairs).
 ROWS_PER_RANGE = 2048
 MAX_RANGES = 128
+# voxels per block of the float32 d_w's pair-list kernels (csrc
+# kPairVoxels)
+PAIR_VOXELS = 2048
 
 # Launch count of every kernel of the port; only the kernels' wrappers (below
 # and in ops/gather.py) add to it, once per launch, so a caller can show
@@ -97,9 +105,13 @@ MAX_RANGES = 128
 launches = {K1: 0, K2_DFEATS: 0, K2_DW: 0, P1: 0, P2: 0}
 routes = {name: {TENSOR_CORE: 0, TF32X3: 0}
           for name in (K1, K2_DFEATS, K2_DW)}
+# The float32 ``d_w``'s pair route: pair lists built (not K1 / K2
+# launches) and its GEMM launches (each also one K2_DW launch above).
+dw_pair_route = {"lists": 0, "launches": 0}
 # the record of ``common.spans`` copies the counts at each step's start and
 # end
 spans.counter("launches", launches)
+spans.counter("dw_pair_route", dw_pair_route)
 
 _libs: dict | None = None
 
@@ -110,6 +122,8 @@ def reset_launch_counts() -> None:
     for counts in routes.values():
         for route in counts:
             counts[route] = 0
+    for name in dw_pair_route:
+        dw_pair_route[name] = 0
 
 
 def _nvcc() -> str:
@@ -170,6 +184,7 @@ def build() -> dict:
             (libs["conv"].mopa_subm_conv_tc, [ptr] * 5 + [cint] * 6),
             (libs["dw"].mopa_subm_conv_dw_f32, [ptr] * 6 + [cint] * 7),
             (libs["dw"].mopa_subm_conv_dw_tc, [ptr] * 6 + [cint] * 7),
+            (libs["dw"].mopa_subm_conv_dw_pairs, [ptr] * 5 + [cint]),
             (libs["gather"].mopa_row_gather, [ptr] * 3 + [cint] * 4),
             (libs["gather"].mopa_gather_gemm, [ptr] * 4 + [cint] * 5)):
         fn.argtypes = args + [ptr]  # the stream last
@@ -271,7 +286,7 @@ def dw_ranges(v: int) -> tuple[int, int]:
 
 
 def dw_tiling(cin: int, cout: int) -> tuple[int, int]:
-    """(wm, nt) of the tensor-core ``d_w`` CTA tile: wm warps of 16 channel
+    """(wm, nt) of the bfloat16 ``d_w`` CTA tile: wm warps of 16 channel
     rows (1, 2 or 4; fewer where Cin is narrow, or where 3*Cout would need
     more than 12 blocks a warp) by 8/wm warps of nt 16-wide blocks over
     3*Cout."""
@@ -279,6 +294,51 @@ def dw_tiling(cin: int, cout: int) -> tuple[int, int]:
     while _cdiv(_cdiv(3 * cout, 16), 8 // wm) > NT_CHOICES[-1]:
         wm //= 2
     return wm, _nt(_cdiv(_cdiv(3 * cout, 16), 8 // wm))
+
+
+def _warps32(width: int) -> int:
+    """Warps of 32 channels (1 to 4) a CTA tile spans over ``width``: the
+    fewest padded channels over all its tiles, the widest tile on a tie."""
+    return min((4, 3, 2, 1), key=lambda w: _cdiv(width, 32 * w) * 32 * w)
+
+
+def dw_pair_tiling(cin: int, cout: int) -> tuple[int, int]:
+    """(wm, wn) of the float32 ``d_w`` CTA tile: (32*wm) Cin x (32*wn)
+    Cout, wm x wn warps of 32 x 32 (384 -> 128: 4 x 4; 128 -> 96: 4 x 3;
+    96 -> 96: 3 x 3)."""
+    return _warps32(cin), _warps32(cout)
+
+
+def dw_pair_lists(ranks: torch.Tensor, sel: torch.Tensor,
+                  v: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the float32 ``d_w``'s pair lists
+    (``subm_conv_dw_pairs_count`` / ``_write``): (pairs (27, V, 2) int32,
+    counts (27,) int32). ``pairs[k, :counts[k]]`` are the (input row,
+    cotangent row) pairs of kernel offset k, ascending by input row: voxel
+    v and the row of its column c in dz slot t, k = 26 - (3c + t) (the
+    mirror form of ``d_w``), rows resolved as the kernels resolve them
+    (outside [0, V) never). Past a count the twin holds -1; the kernel
+    leaves those entries unwritten."""
+    r = ranks.reshape(v, 9).long()
+    codes = sel.reshape(v, 9).long()
+    src = torch.full((27, v), -1, dtype=torch.long, device=ranks.device)
+    for c in range(9):
+        for j in range(3):
+            t = (codes[:, c] >> (2 * j)) & 3
+            row = r[:, c] + j
+            ok = (row >= 0) & (row < v)
+            for s in range(3):
+                k = 26 - (3 * c + s)
+                src[k] = torch.where(ok & (t == s), row, src[k])
+    pairs = torch.full((27, v, 2), -1, dtype=torch.int32,
+                       device=ranks.device)
+    counts = torch.zeros(27, dtype=torch.int32, device=ranks.device)
+    for k in range(27):
+        rows = torch.nonzero(src[k] >= 0)[:, 0]
+        pairs[k, :len(rows), 0] = rows.int()
+        pairs[k, :len(rows), 1] = src[k, rows].int()
+        counts[k] = len(rows)
+    return pairs, counts
 
 
 def _check_plan(ranks: torch.Tensor, sel: torch.Tensor, v: int,
@@ -321,16 +381,21 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch(kernel: str, route: str, fn, device, *args) -> None:
+def _call(what: str, fn, device, *args) -> None:
     """Call the library function ``fn`` with tensors passed as pointers and
-    the current stream last; raise on a CUDA error, else count the launch."""
+    the current stream last; raise on a CUDA error."""
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
     with torch.cuda.device(device):
         err = fn(*c_args, _stream(device))
     if err != 0:
-        raise RuntimeError("{} ({}) launch failed with CUDA error {}".format(
-            kernel, route, err))
+        raise RuntimeError("{} launch failed with CUDA error {}".format(
+            what, err))
+
+
+def _launch(kernel: str, route: str, fn, device, *args) -> None:
+    """:func:`_call` for a K1 / K2 / P1 / P2 launch, counted once."""
+    _call("{} ({})".format(kernel, route), fn, device, *args)
     launches[kernel] += 1
     routes[kernel][route] += 1
 
@@ -426,9 +491,11 @@ def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
     """K2's ``d_w`` (27, Cin, Cout) float32 from the cotangent ``g`` (V, Cout)
     and the forward input ``feats`` (V, Cin), both in one dtype (float32 or
     bfloat16) on a CUDA device, any Cout >= 1. Reduced without atomics over
-    the voxel ranges of :func:`dw_ranges`: the same inputs give the same
-    bits. One launch per :func:`column_blocks` block of Cout, on the block's
-    cotangent columns (``g`` itself when there is one block)."""
+    ranges of :func:`dw_ranges` (bfloat16: of voxels; float32: of each
+    offset's pairs, listed once per call by :func:`_dw_pair_lists_cuda`):
+    the same inputs give the same bits. One launch per
+    :func:`column_blocks` block of Cout, on the block's cotangent columns
+    (``g`` itself when there is one block)."""
     _check_rows(g, "K2 d_w")
     _check_rows(feats, "K2 d_w")
     v, cout = g.shape
@@ -439,25 +506,65 @@ def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
     if cout < 1:
         raise ValueError("K2 d_w needs Cout >= 1, got {}".format(cout))
     _check_plan(ranks, sel, v, g.device)
-    outs = [_dw_block(g[:, c0:c1].contiguous(), feats, ranks, sel)
-            for c0, c1 in column_blocks(cout)]
+    blocks = [g[:, c0:c1].contiguous() for c0, c1 in column_blocks(cout)]
+    if route_for(g.dtype) == TENSOR_CORE:
+        outs = [_dw_block(gb, feats, ranks, sel) for gb in blocks]
+    else:
+        pairs, counts = _dw_pair_lists_cuda(ranks, sel, v)
+        outs = [_dw_pairs_block(gb, feats, pairs, counts) for gb in blocks]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
 def _dw_block(g: torch.Tensor, feats: torch.Tensor, ranks: torch.Tensor,
               sel: torch.Tensor) -> torch.Tensor:
-    """One launch of the ``d_w`` kernel: (27, Cin, g's width) float32."""
+    """One launch of the bfloat16 ``d_w`` kernel: (27, Cin, g's width)
+    float32."""
     v, cout = g.shape
     cin = feats.shape[1]
     ranges, rows = dw_ranges(v)
-    # per-range column blocks (ranges, 9, Cin, 3*Cout), both routes
+    # per-range column blocks (ranges, 9, Cin, 3*Cout)
     partial = torch.empty((ranges, 9, cin, 3 * cout), dtype=torch.float32,
                           device=g.device)
     out = torch.empty((27, cin, cout), dtype=torch.float32, device=g.device)
-    route = route_for(g.dtype)
-    lib = build()["dw"]
-    fn = lib.mopa_subm_conv_dw_tc if route == TENSOR_CORE \
-        else lib.mopa_subm_conv_dw_f32
-    _launch(K2_DW, route, fn, g.device, feats, g, ranks, sel, partial, out,
-            v, cin, cout, ranges, rows, *dw_tiling(cin, cout))
+    _launch(K2_DW, TENSOR_CORE, build()["dw"].mopa_subm_conv_dw_tc, g.device,
+            feats, g, ranks, sel, partial, out, v, cin, cout, ranges, rows,
+            *dw_tiling(cin, cout))
+    return out
+
+
+def _dw_pair_lists_cuda(ranks: torch.Tensor, sel: torch.Tensor,
+                        v: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 ``d_w``'s pair lists on the device (what
+    :func:`dw_pair_lists` computes, the entries past each count left
+    unwritten): (pairs (27, V, 2) int32, counts (27,) int32), 27 * V * 8
+    bytes alive for the call. Counted in ``dw_pair_route["lists"]``, not
+    as a K1 / K2 launch."""
+    dev = ranks.device
+    pairs = torch.empty((27, v, 2), dtype=torch.int32, device=dev)
+    counts = torch.empty(27, dtype=torch.int32, device=dev)
+    block_counts = torch.empty((_cdiv(v, PAIR_VOXELS), 27),
+                               dtype=torch.int32, device=dev)
+    _call("K2 d_w pair lists", build()["dw"].mopa_subm_conv_dw_pairs, dev,
+          ranks, sel, block_counts, pairs, counts, v)
+    dw_pair_route["lists"] += 1
+    return pairs, counts
+
+
+def _dw_pairs_block(g: torch.Tensor, feats: torch.Tensor,
+                    pairs: torch.Tensor,
+                    counts: torch.Tensor) -> torch.Tensor:
+    """One launch of the float32 ``d_w`` kernel over the pair lists:
+    (27, Cin, g's width) float32."""
+    v, cout = g.shape
+    cin = feats.shape[1]
+    ranges, rows = dw_ranges(v)
+    # per-(pair range, offset) blocks (ranges, 27, Cin, Cout): the size of
+    # the bfloat16 route's (ranges, 9, Cin, 3*Cout)
+    partial = torch.empty((ranges, 27, cin, cout), dtype=torch.float32,
+                          device=g.device)
+    out = torch.empty((27, cin, cout), dtype=torch.float32, device=g.device)
+    _launch(K2_DW, TF32X3, build()["dw"].mopa_subm_conv_dw_f32, g.device,
+            feats, g, pairs, counts, partial, out, v, cin, cout, ranges,
+            rows, *dw_pair_tiling(cin, cout))
+    dw_pair_route["launches"] += 1
     return out

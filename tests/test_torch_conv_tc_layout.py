@@ -293,9 +293,10 @@ class _FakeLib:
 def test_wrappers_choose_the_route_by_dtype(level, monkeypatch, dtype,
                                             route):
     """bfloat16 calls the tensor-core entry points, float32 the 3xTF32 ones
-    (with a (9, 2, NP, KP) scratch for the weight's split pack), both with
-    the tile shape, the mirror flag and the d_w tiling; each launch counts
-    once under its kernel and route."""
+    (with a (9, 2, NP, KP) scratch for the weight's split pack, and d_w's
+    pair lists built first), both with the tile shape, the mirror flag and
+    the d_w tiling; each launch counts once under its kernel and route, the
+    pair lists not as a launch."""
     lv, _ = level
     v = lv.valid.shape[0]
     cin, cout = 24, 40
@@ -317,27 +318,39 @@ def test_wrappers_choose_the_route_by_dtype(level, monkeypatch, dtype,
     assert d_feats.shape == (v, cin) and d_feats.dtype == dtype
     assert d_w.shape == (27, cin, cout) and d_w.dtype == torch.float32
     (fwd_name, fwd), (bwd_name, bwd) = libs["conv"].calls
-    (dw_name, dw), = libs["dw"].calls
     ranges, rows = scc.dw_ranges(v)
     if route == scc.TENSOR_CORE:
+        (dw_name, dw), = libs["dw"].calls
         assert (fwd_name, bwd_name, dw_name) == (
             "mopa_subm_conv_tc", "mopa_subm_conv_tc", "mopa_subm_conv_dw_tc")
+        assert dw[2:4] == (lv.ranks.data_ptr(), lv.sel.data_ptr())
+        assert dw[6:] == (v, cin, cout, ranges, rows,
+                          *scc.dw_tiling(cin, cout), 0)
     else:
-        assert (fwd_name, bwd_name, dw_name) == (
+        (list_name, lists), (dw_name, dw) = libs["dw"].calls
+        assert (fwd_name, bwd_name, list_name, dw_name) == (
             "mopa_subm_conv_f32", "mopa_subm_conv_f32",
-            "mopa_subm_conv_dw_f32")
+            "mopa_subm_conv_dw_pairs", "mopa_subm_conv_dw_f32")
         # the pack's scratch between the weight and the output
         fwd, bwd = fwd[:4] + fwd[5:], bwd[:4] + bwd[5:]
+        # the plan in, (block counts, pairs, counts) out; the GEMM reads
+        # the pairs and counts
+        assert lists[:2] == (lv.ranks.data_ptr(), lv.sel.data_ptr())
+        assert lists[5:] == (v, 0)
+        assert dw[2:4] == lists[3:5]
+        assert dw[6:] == (v, cin, cout, ranges, rows,
+                          *scc.dw_pair_tiling(cin, cout), 0)
     assert fwd[5:] == (v, cin, cout, 0, *scc.conv_tile_shape(cin, cout), 0)
     assert bwd[5:] == (v, cout, cin, 1, *scc.conv_tile_shape(cout, cin), 0)
-    assert dw[6:] == (v, cin, cout, ranges, rows, *scc.dw_tiling(cin, cout),
-                      0)
     # the forward weight is passed in place in both modes
     assert fwd[3] == bwd[3] == w.data_ptr()
     other = scc.TF32X3 if route == scc.TENSOR_CORE else scc.TENSOR_CORE
     for name in (scc.K1, scc.K2_DFEATS, scc.K2_DW):
         assert scc.launches[name] == 1
         assert scc.routes[name] == {route: 1, other: 0}
+    n = int(route == scc.TF32X3)
+    assert scc.dw_pair_route == {"lists": n, "launches": n}
     scc.reset_launch_counts()
     assert not any(scc.launches.values())
     assert not any(n for r in scc.routes.values() for n in r.values())
+    assert not any(scc.dw_pair_route.values())

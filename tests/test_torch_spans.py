@@ -174,7 +174,8 @@ def test_cpu_step_under_profiler(clean, one_thread):
     steps = [s for s in rec.spans if s.name == trainer.STEP_SPAN]
     assert [s.step for s in steps] == [first, first + 1]
     assert [s.step for s in rec.steps] == [first, first + 1]
-    assert all(s.before.keys() == s.after.keys() == {"launches"}
+    assert all(s.before.keys() == s.after.keys()
+               == {"launches", "dw_pair_route"}
                for s in rec.steps)
     want = ["train/decode", "train/plan", "train/net2d", "train/net3d",
             "train/losses", "train/backward", "train/optim", "train/ema"]

@@ -32,7 +32,8 @@ from mopa_tpu.ops import sparse_conv as jsc
 from mopa_tpu_torch.ops import sparse_conv as psc
 from mopa_tpu_torch.ops import sparse_conv_cuda as scc
 
-from test_torch_conv_f32_tc import emulate_conv_3xtf32, emulate_dw_3xtf32
+from test_torch_conv_f32_tc import (emulate_conv_3xtf32, emulate_dw_3xtf32,
+                                    twin_pair_lists)
 from test_torch_conv_tc_layout import level  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
@@ -47,7 +48,8 @@ def _close(got, want, rel=1e-5):
 @pytest.fixture
 def twin_launches(monkeypatch):
     """Route every library launch to the plain twin of its kernel, recording
-    (kernel, route, the launch's tensor and integer arguments)."""
+    (kernel, route, the launch's tensor and integer arguments); the float32
+    ``d_w``'s pair lists are the twin's."""
     calls = []
 
     def launch(kernel, route, fn, device, *args):
@@ -60,15 +62,18 @@ def twin_launches(monkeypatch):
         scc.launches[kernel] += 1
         scc.routes[kernel][route] += 1
         if kernel == scc.K2_DW:
-            feats, g, ranks, sel, partial, out = args[:6]
+            # the plan (bfloat16) or the pair lists (float32)
+            feats, g, plan_a, plan_b, partial, out = args[:6]
             v, cin, cout = args[6:9]
-            assert partial.shape[2:] == (cin, 3 * cout)
             assert (g.shape[1], out.shape) == (cout, (27, cin, cout))
             assert g.is_contiguous()
-            out.copy_(emulate_dw_3xtf32(g, feats, ranks, sel)
-                      if route == scc.TF32X3
-                      else psc.submanifold_conv_wide_dw_ref(g, feats, ranks,
-                                                            sel))
+            if route == scc.TF32X3:
+                assert partial.shape[1:] == (27, cin, cout)
+                out.copy_(emulate_dw_3xtf32(g, feats, plan_a, plan_b))
+            else:
+                assert partial.shape[2:] == (cin, 3 * cout)
+                out.copy_(psc.submanifold_conv_wide_dw_ref(g, feats, plan_a,
+                                                           plan_b))
             return
         rows, ranks, sel, weight, out, v, cin, width, mirror = args[:9]
         assert out.shape == (v, width) and weight.is_contiguous()
@@ -85,6 +90,7 @@ def twin_launches(monkeypatch):
     lib = type("Lib", (), {"__getattr__": lambda self, name: name})()
     monkeypatch.setattr(scc, "build", lambda: {"conv": lib, "dw": lib})
     monkeypatch.setattr(scc, "_launch", launch)
+    monkeypatch.setattr(scc, "_call", twin_pair_lists)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     scc.reset_launch_counts()
