@@ -136,16 +136,17 @@ class Driver:
         return self.cell.phases.line()
 
     def work(self, info: dict) -> dict:
-        """Least time of the K1 / K2 launches and model operations at
-        peak over the traced window's steps."""
+        """Each count of :meth:`train.TrainCell.step_counts` (least time of
+        the K1 / K2 launches, model operations at peak, and the 3D net's
+        own) summed over the traced window's steps."""
         per = {}
-        total = {"conv_least_s": 0.0, "model_peak_s": 0.0}
+        total = {}
         for i in info["batches"]:
             if i not in per:
                 s, t = self.raw[i]
                 per[i] = self.cell.step_counts(s, t, self._rng(i))
-            for k in total:
-                total[k] += per[i][k]
+            for k, v in per[i].items():
+                total[k] = total.get(k, 0.0) + v
         return total
 
     def check(self, control: bool = False) -> dict:

@@ -28,7 +28,8 @@ PLAN_BYTES = 72   # a voxel's wide-plan entries: 9 ranks + 9 codes, int32
 
 @dataclass(frozen=True)
 class Conv:
-    """One sparse conv layer of a 3D net: ``kind`` "subm" (3x3x3),
+    """One sparse conv layer of a 3D net (each net's module lists its own,
+    :mod:`benchmark.reference.nets3d`): ``kind`` "subm" (3x3x3),
     "down" (stride 2 onto ``level``), "up" (deconv from ``level`` + 1
     onto ``level``) or "one" (1x1); ``grad_in``: its input needs a
     gradient (the stem's does not)."""
@@ -38,44 +39,6 @@ class Conv:
     cout: int
     dtype: torch.dtype
     grad_in: bool = True
-
-
-def scn_convs(in_channels: int, m: int, num_planes: int, dtype) -> list:
-    planes = [(i + 1) * m for i in range(num_planes)]
-    out = [Conv("subm", 0, in_channels, m, dtype, grad_in=False)]
-    for l, p in enumerate(planes):
-        out.append(Conv("subm", l, p, p, dtype))
-        if l + 1 < num_planes:
-            q = planes[l + 1]
-            out += [Conv("down", l + 1, p, q, dtype),
-                    Conv("up", l, q, p, dtype),
-                    Conv("subm", l, 2 * p, p, dtype)]
-    return out
-
-
-def spvcnn_convs(in_channels: int, cs, dtype) -> list:
-    f32 = torch.float32
-    out = [Conv("subm", 0, in_channels, cs[0], dtype, grad_in=False),
-           Conv("subm", 0, cs[0], cs[0], dtype)]
-
-    def res(level, cin, cout, dt):
-        blk = [Conv("subm", level, cin, cout, dt),
-               Conv("subm", level, cout, cout, dt)]
-        return blk + ([Conv("one", level, cin, cout, dt)]
-                      if cin != cout else [])
-
-    for i in range(1, 5):
-        out.append(Conv("down", i, cs[i - 1], cs[i - 1], dtype))
-        out += res(i, cs[i - 1], cs[i], dtype) + res(i, cs[i], cs[i], dtype)
-    for t, (cin, cout, skip) in enumerate(((cs[4], cs[5], cs[3]),
-                                           (cs[5], cs[6], cs[2]),
-                                           (cs[6], cs[7], cs[1]),
-                                           (cs[7], cs[8], cs[0]))):
-        level = 3 - t
-        out.append(Conv("up", level, cin, cout, f32))
-        out += res(level, cout + skip, cout, f32) + res(level, cout, cout,
-                                                       f32)
-    return out
 
 
 def level_stats(plan) -> list:

@@ -21,23 +21,15 @@ worst leaf is a small batch-norm leaf that changes from seed to seed).
 The change leaves out the leaves whose reference gradient is below
 :data:`STILL_LEAF` of the median leaf's.
 
-Where the 3D net is SPVCNN, whose decoder runs in float32 while its
-encoder runs in the compute dtype, one more number reads the float32
-decoder by itself: ``decoder_gap``. In the first step the harness keeps
-what each of the decoder's residual blocks (:data:`DECODER_BLOCKS`, the
-float32 K1 / K2 convs of the step) took in and gave out, and each point's
-voxel slot at every level of the program's plan. After the window the
-reference's own block, from the seeded weights on its own voxel levels,
-works the block out again from the program's input: the worst block's
-relative norm of the difference, ``|prog - ref| / |ref|``. The encoder's
-rounding, which the other numbers see, does not reach it; a float32
-decoder computed in TF32 does.
+The 3D net's module (:mod:`benchmark.reference.nets3d`, by
+``MODEL_3D.TYPE``) may add numbers of its own blocks: in the first step its
+``check_hooks`` keep what they read from the program's 3D net, and after
+the window its ``check_gaps`` work them out again with the reference.
 """
 
 from __future__ import annotations
 
 import gc
-import math
 import statistics
 
 import numpy as np
@@ -46,15 +38,12 @@ import torch
 from benchmark.harness import counts, weights
 from benchmark.harness.core import Phases, internal_seed, port_cfg
 from benchmark.reference import model as ref
+from benchmark.reference import nets3d
 
 CHECK_STEPS = 3
 # a leaf whose reference gradient is below this share of the median leaf's
 # moves under Adam by rounding alone, and its change is not compared
 STILL_LEAF = 1e-3
-# SPVCNN's float32 decoder: its residual blocks, each at plan level
-# 4 - stage (``mopa_tpu_torch/models/spvcnn.py``, ``reference/net3d.py``)
-DECODER_BLOCKS = tuple("upres{}{}".format(t, ab) for t in "1234"
-                       for ab in "ab")
 # the stages of a train step (the program's record_function ranges)
 STAGES = ("train/decode", "train/vgi", "train/plan", "train/net2d",
           "train/net3d", "train/losses", "train/backward", "train/optim",
@@ -139,6 +128,7 @@ class TrainCell:
         self.device = torch.device(device)
         self.cfg = port_cfg(self.values, seed)
         self.with_mopa = bool(traffic.get("with_mopa", False))
+        self.net, self.sub = nets3d.of(self.values["MODEL_3D"])
         self.readings = {"losses": []}
         self.done = 0           # steps taken
         self.phases = Phases()
@@ -171,7 +161,9 @@ class TrainCell:
         copied to the host."""
         from mopa_tpu_torch.train.common import host_metrics
 
-        hooks = self._hook_decoder() if self.done == 0 else []
+        hooks = []
+        if self.done == 0 and hasattr(self.net, "check_hooks"):
+            hooks = self.net.check_hooks(self.models.model_3d, self.readings)
         try:
             self.state, metrics = self.step_fn(self.state, src, trg)
         finally:
@@ -205,36 +197,6 @@ class TrainCell:
                     change[pre + k] = float((p.detach() - start[k]).norm())
             self.readings["change"] = change
 
-    def _hook_decoder(self) -> list:
-        """Where the 3D net is SPVCNN, hooks that keep on the host, for
-        the first step, each point's slot at the decoder's levels and each
-        decoder block's input and output (``readings["decoder"]``)."""
-        if self.values["MODEL_3D"]["TYPE"] != "SPVCNN":
-            return []
-        net = self.models.model_3d.net_3d
-        got = self.readings["decoder"] = {"blocks": {}}
-
-        def on_plan(mod, args):
-            plan = args[1]
-            maps = [plan.point_inverse]
-            for lv in plan.levels[1:4]:
-                prev = maps[-1]
-                maps.append(torch.where(prev >= 0,
-                                        lv.f2c[prev.clamp(min=0)], prev))
-            got["maps"] = [m.cpu() for m in maps]
-
-        def on_block(name):
-            def hook(mod, args, out):
-                got["blocks"].setdefault(name, []).append(
-                    (args[0].detach().float().cpu(),
-                     out.detach().float().cpu()))
-            return hook
-
-        hooks = [net.register_forward_pre_hook(on_plan)]
-        hooks += [getattr(net, n).register_forward_hook(on_block(n))
-                  for n in DECODER_BLOCKS]
-        return hooks
-
     def release(self) -> None:
         """Free the program's models, state and step."""
         for name in ("state", "step_fn", "models"):
@@ -250,7 +212,7 @@ class TrainCell:
         VGI generator or None), as :func:`ref.train_readings` gives them,
         reduced to norms."""
         p2d, p3d = reference_params(self.values, self.seed, self.device)
-        rnd = CONTROLS[self.conf["control"]] if control else None
+        rnd = self.control() if control else None
         with self.phases("control" if control else "reference"):
             out = ref.train_readings(self.values, p2d, p3d, pairs,
                                      seeds(self.seed)["dropout"],
@@ -278,106 +240,79 @@ class TrainCell:
                 "grad_median_gap": statistics.median(gaps),
                 "change_gap": change}
 
-    def decoder_gaps(self, raw_src: dict, raw_trg: dict,
-                     control: bool) -> dict:
-        """``decoder_gap`` of the program (module docstring) over the first
-        step's batch pair, and with ``control`` that of the reference's
-        blocks computed with the control's float32 rounding in the
-        program's place. inf where the program's levels are not the
-        reference's or a block ran other than once."""
-        got = self.readings.get("decoder")
-        if got is None:
+    def check_gaps(self, raw_src: dict, raw_trg: dict,
+                   control: bool) -> dict:
+        """The 3D net's own numbers over the first step's batch pair
+        (``{"program": {name: gap}}``, with ``control`` also
+        ``"control"``); {} where its module adds none."""
+        if not hasattr(self.net, "check_gaps"):
             return {}
-        dev = self.device
         torch.backends.cuda.matmul.allow_tf32 = False
+        net3d = self.reference_net3d()
+        feats, plan, nd = self.net_input(raw_src, raw_trg, net3d.num_levels)
+        return self.net.check_gaps(self.readings, net3d, feats, plan, nd,
+                                   self.control() if control else None)
+
+    def net_input(self, raw_src: dict, raw_trg: dict, num_levels: int,
+                  rng=None) -> tuple:
+        """(features, plan, domains) of the reference's 3D net for a raw
+        batch pair, on the cell's device, with the cat scans of ``rng``
+        for MoPA."""
+        dev = self.device
         src, trg = ref.decode(raw_src, dev), ref.decode(raw_trg, dev)
-        b = src["img_indices"].shape[0]
-        parts = [(src["coords"], src["point_valid"].reshape(-1), b, 0),
-                 (trg["coords"], trg["point_valid"].reshape(-1), b, 1)]
-        _, net3d = ref.build_nets(self.values, dev)
-        ref.load(net3d, reference_params(self.values, self.seed, dev)[1])
-        net3d.train()
-        plan = ref.scans_plan(parts, net3d.num_levels)
-        mine = _point_maps(plan)
-        rnd = {torch.float32: CONTROLS[self.conf["control"]][torch.float32]}
-        out = dict.fromkeys(("program", "control") if control
-                            else ("program",), 0.0)
-        for name in DECODER_BLOCKS:
-            level = 4 - int(name[5])
-            slots = _slots(mine[level], got["maps"][level].to(dev),
-                           plan.levels[level].key.shape[0])
-            runs = got["blocks"].get(name, [])
-            if slots is None or len(runs) != 1:
-                return dict.fromkeys(out, math.inf)
-            x, y = (t.to(dev)[slots] for t in runs[0])
-            blk = getattr(net3d.net_3d, name)
-            with torch.no_grad():
-                blk.rounding = {}
-                want = blk(x, plan.levels[level], len(parts))
-                out["program"] = max(out["program"], _rel(y, want))
-                if control:
-                    blk.rounding = rnd
-                    out["control"] = max(out["control"], _rel(
-                        blk(x, plan.levels[level], len(parts)), want))
-            del x, y, want
-        return out
+        cat = (None if rng is None else
+               ref.vgi_cat(self.values, raw_trg, rng, dev))
+        return ref.scans_input(src, trg, cat, num_levels)
+
+    def control(self) -> dict:
+        """The configuration's control: a rounding of GEMM operands by
+        their dtype."""
+        return CONTROLS[self.conf["control"]]
+
+    def reference_net3d(self):
+        """The reference's 3D net with the seeded weights, on the cell's
+        device, in training mode."""
+        net3d = ref.build_net3d(self.values, self.device)
+        ref.load(net3d, reference_params(self.values, self.seed,
+                                         self.device)[1])
+        return net3d.train()
 
     # -- counts -------------------------------------------------------------
     def step_counts(self, raw_src: dict, raw_trg: dict, rng) -> dict:
         """Least time of the step's K1 / K2 launches and the step's model
         operations at peak (seconds), from the benchmark's own plan of the
-        batch pair (with the cat scans of ``rng`` for MoPA)."""
-        dev = self.device
-        src, trg = ref.decode(raw_src, dev), ref.decode(raw_trg, dev)
-        b, p = src["img_indices"].shape[:2]
-        parts = [(src["coords"], src["point_valid"].reshape(-1), b, 0),
-                 (trg["coords"], trg["point_valid"].reshape(-1), b, 1)]
-        if rng is not None:
-            cat = ref.vgi_cat(self.values, raw_trg, rng, dev)
-            parts.append((cat["coords"], cat["valid"], b, 2))
-        net2d, net3d = meta_nets(self.values)
-        plan = ref.scans_plan(parts, net3d.num_levels)
-        stats = counts.level_stats(plan)
-        convs = self.convs()
-        n_points = sum(int(x[1].shape[0]) for x in parts)
-        h, w = src["img"].shape[1:3]
-        peak_s = counts.conv_peak_s(convs, stats) + self.head_peak_s(
-            n_points, int(plan.point_voxel.ge(0).sum()), 2 * b * p,
-            2 * b * h * w)
-        peak_s += counts.unet2d_flops(2 * b, h, w) \
-            / counts.PEAK_FLOPS[ref.compute_dtype(self.values)]
-        return {"conv_least_s": counts.conv_kernel_least_s(convs, stats,
-                                                           backward=True),
-                "model_peak_s": 3 * peak_s}
-
-    def convs(self) -> list:
-        m3 = self.values["MODEL_3D"]
+        batch pair (with the cat scans of ``rng`` for MoPA), and what the
+        3D net's module counts besides (its ``work``)."""
         dt = ref.compute_dtype(self.values)
-        if m3["TYPE"] == "SCN":
-            s = m3["SCN"]
-            return counts.scn_convs(int(s.get("in_channels", 1)),
-                                    int(s["m"]), int(s["num_planes"]), dt)
-        return counts.spvcnn_convs(int(m3["SPVCNN"]["in_channels"]),
-                                   sp_cs(), dt)
+        plan = self.net_input(raw_src, raw_trg,
+                              meta_nets(self.values)[1].num_levels, rng)[1]
+        stats = counts.level_stats(plan)
+        convs = self.net.convs(self.sub, dt)
+        b, p = raw_src["img_indices"].shape[:2]
+        h, w = raw_src["img"].shape[1:3]
+        peak_s = counts.conv_peak_s(convs, stats) + self.head_peak_s(
+            stats, int(plan.point_voxel.shape[0]),
+            int(plan.point_voxel.ge(0).sum()), 2 * b * p, 2 * b * h * w)
+        peak_s += counts.unet2d_flops(2 * b, h, w) / counts.PEAK_FLOPS[dt]
+        out = {"conv_least_s": counts.conv_kernel_least_s(convs, stats,
+                                                          backward=True),
+               "model_peak_s": 3 * peak_s}
+        if hasattr(self.net, "work"):
+            out.update(self.net.work(self.sub, dt, plan, stats))
+        return out
 
-    def head_peak_s(self, n3d: int, n_valid: int, n2d: int,
+    def head_peak_s(self, stats: list, n3d: int, n_valid: int, n2d: int,
                     pixels: int) -> float:
-        """The float32 linear layers: both nets' heads over their points,
-        the dense 2D head with SAM, SPVCNN's point layers."""
+        """The float32 linear layers: the 2D net's heads over its points,
+        the dense 2D head with SAM, then the 3D net's own operations that
+        are not its convs (its module's ``peak_s``)."""
         c = int(self.values["MODEL_2D"]["NUM_CLASSES"])
         heads = 2 if self.values["MODEL_2D"]["DUAL_HEAD"] else 1
         out = heads * counts.dense_peak_s(n2d, 64, c)
         if float(self.values["TRAIN"]["PC_MM"]["lambda_sam_cons"]) > 0:
             out += counts.dense_peak_s(pixels, 64, c)
-        if self.values["MODEL_3D"]["TYPE"] == "SPVCNN":
-            cs = sp_cs()
-            out += heads * counts.dense_peak_s(n3d, cs[8], c)
-            for cin, cout in ((cs[0], cs[4]), (cs[4], cs[6]), (cs[6], cs[8])):
-                out += counts.dense_peak_s(n_valid, cin, cout)
-        else:
-            out += heads * counts.dense_peak_s(
-                n3d, int(self.values["MODEL_3D"]["SCN"]["m"]), c)
-        return out
+        return out + self.net.peak_s(self.sub, ref.compute_dtype(self.values),
+                                     stats, n3d, n_valid, heads, c)
 
 
 def check_numbers(cell: TrainCell, pairs, control: bool) -> dict:
@@ -393,44 +328,9 @@ def check_numbers(cell: TrainCell, pairs, control: bool) -> dict:
             cell.reference_readings(pairs(), control=True), refr)
         worst["control"] = cell.worst
     cell.worst = worst
-    for who, gap in cell.decoder_gaps(first[0], first[1], control).items():
-        out[who]["decoder_gap"] = gap
+    for who, gaps in cell.check_gaps(first[0], first[1], control).items():
+        out[who].update(gaps)
     return out
-
-
-def _point_maps(plan) -> list:
-    """Each point's row at every level of the reference's plan."""
-    maps = [plan.point_voxel]
-    for lv in plan.levels[1:]:
-        prev = maps[-1]
-        maps.append(torch.where(prev >= 0, lv.f2c[prev.clamp(min=0)], prev))
-    return maps
-
-
-def _slots(mine: torch.Tensor, prog: torch.Tensor, rows: int):
-    """The program's slot of each of the reference's ``rows`` voxels, from
-    the two point -> voxel maps; None where they disagree: a point in a
-    voxel on one side alone, two voxels in one slot, one voxel in two."""
-    ok = mine >= 0
-    if not torch.equal(ok, prog >= 0):
-        return None
-    slot = torch.full((rows,), -1, dtype=torch.long, device=mine.device)
-    slot[mine[ok]] = prog[ok].long()
-    if bool((slot < 0).any()) or not torch.equal(slot[mine[ok]],
-                                                 prog[ok].long()) \
-            or torch.unique(slot).numel() != rows:
-        return None
-    return slot
-
-
-def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float((got.float() - want.float()).norm()
-                 / want.float().norm().clamp(min=1e-30))
-
-
-def sp_cs():
-    from benchmark.reference.net3d import SPVCNN_CS
-    return SPVCNN_CS
 
 
 def vgi_rng(seed: int, index: int) -> np.random.Generator:

@@ -37,16 +37,20 @@ def compute_dtype(cfg: dict) -> torch.dtype:
 def build_nets(cfg: dict, device) -> tuple:
     """(2D net, 3D net) of ``cfg`` with zero weights, on ``device``."""
     dt = compute_dtype(cfg)
-    m2, m3 = cfg["MODEL_2D"], cfg["MODEL_3D"]
+    m2 = cfg["MODEL_2D"]
     output_all = float(cfg["TRAIN"]["PC_MM"]["lambda_sam_cons"]) > 0
     net2d = Net2DSeg(m2["NUM_CLASSES"], m2["DUAL_HEAD"], dt, output_all)
+    return net2d.to(device), build_net3d(cfg, device)
+
+
+def build_net3d(cfg: dict, device) -> Net3DSeg:
+    """The 3D net of ``cfg`` (its ``MODEL_3D.TYPE`` built from its
+    ``MODEL_3D.<TYPE>`` values) with zero weights, on ``device``."""
+    m3 = cfg["MODEL_3D"]
     kind = m3["TYPE"]
-    sub = m3.get(kind, {})
-    net3d = Net3DSeg(kind, m3["NUM_CLASSES"], m3["DUAL_HEAD"], dt,
-                     in_channels=int(sub.get("in_channels", 1)),
-                     m=int(sub.get("m", 16)),
-                     num_planes=int(sub.get("num_planes", 7)))
-    return net2d.to(device), net3d.to(device)
+    net3d = Net3DSeg(kind, m3.get(kind, {}), m3["NUM_CLASSES"],
+                     m3["DUAL_HEAD"], compute_dtype(cfg))
+    return net3d.to(device)
 
 
 def load(net: torch.nn.Module, params: dict) -> None:
@@ -140,6 +144,21 @@ def scans_plan(parts: list, num_levels: int) -> sp.Plan:
                          num_levels)
 
 
+def scans_input(src: dict, trg: dict, cat, num_levels: int) -> tuple:
+    """The 3D net's input of a decoded batch pair: (features, plan,
+    domains) of the source scans, the target's, and the cat scans of MoPA
+    where ``cat`` is given."""
+    b = src["img_indices"].shape[0]
+    parts = [(src["coords"], src["point_valid"].reshape(-1), b, 0),
+             (trg["coords"], trg["point_valid"].reshape(-1), b, 1)]
+    feats = [src["feats"], trg["feats"]]
+    if cat is not None:
+        parts.append((cat["coords"], cat["valid"], b, 2))
+        feats.append(torch.ones((cat["valid"].shape[0], 1),
+                                device=cat["valid"].device))
+    return torch.cat(feats), scans_plan(parts, num_levels), len(parts)
+
+
 def _class_weights(cfg, device):
     cw = cfg["TRAIN"].get("CLASS_WEIGHTS") or None
     return None if cw is None else torch.tensor(cw, device=device)
@@ -161,15 +180,8 @@ def step_losses(cfg: dict, net2d, net3d, src: dict, trg: dict, cat,
                   torch.cat([src["img_indices"], trg["img_indices"]]),
                   torch.cat([src["point_valid"], trg["point_valid"]]),
                   n_domains=2, generator=generator)
-    parts = [(src["coords"], src["point_valid"].reshape(-1), b, 0),
-             (trg["coords"], trg["point_valid"].reshape(-1), b, 1)]
-    feats = [src["feats"], trg["feats"]]
-    if cat is not None:
-        parts.append((cat["coords"], cat["valid"], b, 2))
-        feats.append(torch.ones((cat["valid"].shape[0], 1),
-                                device=cat["valid"].device))
-    plan = scans_plan(parts, net3d.num_levels)
-    out3d = net3d(torch.cat(feats), plan, nd=len(parts), generator=generator)
+    feats, plan, nd = scans_input(src, trg, cat, net3d.num_levels)
+    out3d = net3d(feats, plan, nd=nd, generator=generator)
 
     s2 = {k: v[:n] for k, v in out2d.items() if k != "seg_logit_all"}
     t2 = {k: v[n:] for k, v in out2d.items() if k != "seg_logit_all"}

@@ -10,7 +10,8 @@ Conventions (those of SparseConvNet, which the program follows):
   level l's voxels.
 - A submanifold conv's weight is (27, Cin, Cout), offsets (dx, dy, dz) in
   -1..1 with dx slowest and dz fastest; out[v] = sum_k in[v + offset_k] @
-  W[k] over the neighbours that exist.
+  W[k] over the neighbours that exist. :func:`neighbours` gives the map of
+  any odd cube, in the same order.
 - A stride-2 conv's and a deconv's weight is (8, Cin, Cout), indexed by
   the fine voxel's place in its parent, 4 (x % 2) + 2 (y % 2) + z % 2.
 - Input pooling takes each voxel's mean of its points' features; output
@@ -43,8 +44,15 @@ def unpack(key: torch.Tensor) -> tuple:
     return key // FIELD ** 3, torch.stack([x, y, z], dim=1)
 
 
-OFFSETS = torch.tensor([(dx, dy, dz) for dx in (-1, 0, 1)
-                        for dy in (-1, 0, 1) for dz in (-1, 0, 1)])
+def offsets(kernel_size: int) -> torch.Tensor:
+    """(k^3, 3) offsets of a cube of odd side k, dx slowest, dz fastest."""
+    if kernel_size < 1 or kernel_size % 2 != 1:
+        raise ValueError("kernel size {} is not odd".format(kernel_size))
+    r = range(-(kernel_size // 2), kernel_size // 2 + 1)
+    return torch.tensor([(dx, dy, dz) for dx in r for dy in r for dz in r])
+
+
+OFFSETS = offsets(3)
 
 
 class Level(NamedTuple):
@@ -65,15 +73,24 @@ class Plan(NamedTuple):
 
 
 def _neighbours(key: torch.Tensor, sample: torch.Tensor,
-                coords: torch.Tensor) -> torch.Tensor:
-    offs = OFFSETS.to(coords.device)
-    q = coords[:, None, :] + offs[None]                       # (V, 27, 3)
+                coords: torch.Tensor, offs: torch.Tensor = OFFSETS
+                ) -> torch.Tensor:
+    offs = offs.to(coords.device)
+    q = coords[:, None, :] + offs[None]                       # (V, K, 3)
     inside = ((q >= 0) & (q < FIELD)).all(-1)
     qk = pack(sample[:, None].expand_as(inside).reshape(-1),
               q.clamp(0, FIELD - 1).reshape(-1, 3)).reshape(inside.shape)
     pos = torch.searchsorted(key, qk).clamp(max=key.shape[0] - 1)
     hit = (key[pos] == qk) & inside
     return torch.where(hit, pos, torch.full_like(pos, -1))
+
+
+def neighbours(level: Level, kernel_size: int) -> torch.Tensor:
+    """(V, k^3) neighbour voxel of each of ``level``'s voxels at each
+    offset of :func:`offsets` (``kernel_size``), or -1; at 3 it is the
+    level's ``nbr``."""
+    return _neighbours(level.key, unpack(level.key)[0], level.coords,
+                       offsets(kernel_size))
 
 
 def build_plan(coords: torch.Tensor, sample: torch.Tensor,

@@ -1,11 +1,13 @@
 """A cell's configuration and traffic at a size the CPU runs in seconds:
 2 + 2 scans of 1,024 points from 2,048-point raw scans, 128 x 96 images,
-SCN m=4 over 3 levels, float32 unless asked (the CPU has no bfloat16
-convolution fast enough), capacities of the whole budget at every level."""
+the 3D net at its module's ``small`` values, float32 unless asked (the CPU
+has no bfloat16 convolution fast enough), capacities of the whole budget
+at every level."""
 
 import copy
 
 from benchmark.harness import core
+from benchmark.reference import nets3d
 
 
 def files(name: str) -> tuple:
@@ -25,8 +27,8 @@ def small_cfg(name: str, dtype: str = "float32") -> dict:
     for d in ("DATASET_SOURCE", "DATASET_TARGET"):
         c[d]["SyntheticSCN"].update({"n_points": 2048, "length": 16,
                                      "image_size": [128, 96]})
-    if c["MODEL_3D"]["TYPE"] == "SCN":
-        c["MODEL_3D"]["SCN"].update({"m": 4, "num_planes": 3})
+    net, sub = nets3d.of(c["MODEL_3D"])
+    c["MODEL_3D"][c["MODEL_3D"]["TYPE"]] = net.small(sub)
     return c
 
 

@@ -7,6 +7,7 @@ import torch
 from benchmark.harness import counts, train
 from benchmark.harness.counts import Conv
 from benchmark.reference import sparse3d as sp
+from benchmark.reference.nets3d import scn, spvcnn
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -73,12 +74,12 @@ def test_model_operations_by_hand():
 
 
 def test_scn_conv_list():
-    convs = counts.scn_convs(1, 16, 7, BF16)
+    convs = scn.convs({"in_channels": 1, "m": 16, "num_planes": 7}, BF16)
     subm = [c for c in convs if c.kind == "subm"]
     assert len(subm) == 14 and sum(not c.grad_in for c in subm) == 1
     assert sum(c.kind == "down" for c in convs) == 6
-    spv = counts.spvcnn_convs(4, (32, 32, 64, 128, 256, 256, 128, 96, 96),
-                              BF16)
+    assert spvcnn.CS == (32, 32, 64, 128, 256, 256, 128, 96, 96)
+    spv = spvcnn.convs({"in_channels": 4}, BF16)
     assert sum(c.kind == "subm" for c in spv) == 34
     assert {c.dtype for c in spv if c.kind == "subm" and c.level == 0
             and c.cin == 96 + 32} == {F32}

@@ -69,6 +69,9 @@ def test_reference_imports_nothing_of_the_program(tmp_path):
 
     code = ("import sys; sys.path.insert(0, {!r});"
             "import benchmark.reference.model, benchmark.harness.counts;"
+            "import benchmark.reference.nets3d as n;"
+            "got = sorted(m.__name__.rsplit('.', 1)[1] for m in n.modules());"
+            "assert {{'scn', 'spvcnn'}} <= set(got), got;"
             "bad = sorted({{m.split('.')[0] for m in sys.modules}}"
             " & {{'mopa_tpu_torch', 'mopa_tpu', 'jax', 'flax'}});"
             "print(bad); sys.exit(1 if bad else 0)").format(
