@@ -257,6 +257,23 @@ _C.MODEL_3D.SPVCNN.in_channels = 4
 _C.MODEL_3D.SPVCNN_Base = CN()
 _C.MODEL_3D.SPVCNN_Base.pretrained = True
 _C.MODEL_3D.SPVCNN_Base.in_channels = 4
+# Point Transformer V3 options (Pointcept's point_transformer_v3m1_base.py
+# keywords; its semantic_kitti semseg-pt-v3m1-0-base.py values). The plan
+# fixes stride 2 at every stage (its levels are SCN's) and one patch size a
+# level (enc_patch_size, decoder alike); pre-norm, no RPE, shuffled orders.
+_C.MODEL_3D.PTv3 = CN()
+_C.MODEL_3D.PTv3.in_channels = 4
+_C.MODEL_3D.PTv3.order = ("z", "z-trans", "hilbert", "hilbert-trans")
+_C.MODEL_3D.PTv3.enc_depths = (2, 2, 2, 6, 2)
+_C.MODEL_3D.PTv3.enc_channels = (32, 64, 128, 256, 512)
+_C.MODEL_3D.PTv3.enc_num_head = (2, 4, 8, 16, 32)
+_C.MODEL_3D.PTv3.enc_patch_size = (1024, 1024, 1024, 1024, 1024)
+_C.MODEL_3D.PTv3.dec_depths = (2, 2, 2, 2)
+_C.MODEL_3D.PTv3.dec_channels = (64, 64, 128, 256)
+_C.MODEL_3D.PTv3.dec_num_head = (4, 4, 8, 16)
+_C.MODEL_3D.PTv3.mlp_ratio = 4
+_C.MODEL_3D.PTv3.qkv_bias = True
+_C.MODEL_3D.PTv3.drop_path = 0.3
 # SalsaNext options
 _C.MODEL_3D.SalsaNext = CN()
 _C.MODEL_3D.SalsaNext.pretrained = False

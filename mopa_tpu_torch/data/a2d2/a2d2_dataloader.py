@@ -157,7 +157,7 @@ class A2D2SCN(A2D2Base):
         out_dict["coords"] = coords[idxs]
         out_dict["aug_points"] = aug_points[idxs]
         out_dict["feats"] = np.ones([int(idxs.sum()), 1], np.float32)
-        if inputs.is_spvcnn(self.backbone):
+        if inputs.takes_xyzi(self.backbone):
             refl = np.asarray(data_dict.get(
                 "reflectance", np.ones(len(points))), np.float32)
             out_dict["feats"] = inputs.spvcnn_feats(aug_points[idxs],

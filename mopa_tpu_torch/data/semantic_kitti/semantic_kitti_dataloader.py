@@ -396,7 +396,7 @@ class SemanticKITTISCN(SemanticKITTIBase):
         out_dict["coords"] = coords[idxs]
         out_dict["aug_points"] = aug_points[idxs]
         out_dict["feats"] = np.ones([int(idxs.sum()), 1], np.float32)
-        if inputs.is_spvcnn(self.backbone):
+        if inputs.takes_xyzi(self.backbone):
             out_dict["feats"] = inputs.spvcnn_feats(aug_points[idxs],
                                                     feats[idxs])
         elif self.backbone == "SalsaNext":

@@ -385,8 +385,9 @@ class SyntheticSCN:
     slab thickness, so that a trained model can reach a high mIoU.
     ``output_orig`` (eval) adds the points in meters and the restore mask.
     The 3D inputs follow ``backbone`` (:mod:`~mopa_tpu_torch.data.utils.
-    inputs`; a random intensity per point for SPVCNN and SalsaNext, whose
-    range image is ``proj_H`` x ``proj_W`` over ``fov_up`` / ``fov_down``),
+    inputs`; a random intensity per point for SPVCNN, PTv3 and SalsaNext,
+    whose range image is ``proj_H`` x ``proj_W`` over ``fov_up`` /
+    ``fov_down``),
     and ``with_depth_label`` adds the dense ``depth_label`` (H, W, 1).
     """
 
@@ -548,7 +549,7 @@ class SyntheticSCN:
             out["depth_label"] = dense_depth_label(
                 (h, w), img_indices[idxs], points[idxs])
         n = int(idxs.sum())
-        if inputs.is_spvcnn(self.backbone):
+        if inputs.takes_xyzi(self.backbone):
             out["feats"] = inputs.spvcnn_feats(
                 aug_points[idxs],
                 rng.uniform(0, 1, (n, 1)).astype(np.float32))

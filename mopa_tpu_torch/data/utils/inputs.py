@@ -2,8 +2,9 @@
 package's dataset branches, ``mopa_tpu/data/*/``):
 
 * SCN: an all-ones (N, 1) feature column beside the voxel coordinates;
-* SPVCNN (any type whose name starts with it): (N, 4) features, the
-  augmented xyz and the point's intensity / remission / reflectance;
+* SPVCNN and PTv3 (any type whose name starts with either): (N, 4)
+  features, the augmented xyz and the point's intensity / remission /
+  reflectance (Pointcept's "coord" and "strength");
 * SalsaNext: the (H, W, 5) range image ``proj_in`` and each point's pixel
   ``proj_xy`` (``augmentation_3d.build_range_input``).
 
@@ -18,8 +19,9 @@ import numpy as np
 from mopa_tpu_torch.data.utils.augmentation_3d import build_range_input
 
 
-def is_spvcnn(backbone: str) -> bool:
-    return str(backbone).upper().startswith("SPVCNN")
+def takes_xyzi(backbone: str) -> bool:
+    """The backbone takes (N, 4) xyz-and-intensity point features."""
+    return str(backbone).upper().startswith(("SPVCNN", "PTV3"))
 
 
 def spvcnn_feats(aug_points: np.ndarray,

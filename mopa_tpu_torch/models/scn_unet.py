@@ -66,6 +66,9 @@ class UNetPlan(NamedTuple):
     # run order -> original point map; None = scatter pooling
     point_end: torch.Tensor | None = None   # (V_0,)
     point_perm: torch.Tensor | None = None  # (N,)
+    # Point Transformer V3's curve orders, patch layouts and stem map
+    # (``models.serialize.SerialPlan``), added in the plan stage
+    serial: object | None = None
 
 
 # Per-level capacity as a fraction of the point budget; sized to hold the true

@@ -7,10 +7,11 @@
   head on the float32 feature map, read by the SAM consistency loss); with
   ``depth_pred`` the depth head's dense ``depth_pred`` map.
 * :class:`Net3DSeg`: a 3D backbone and linear seg head(s) in float32 on its
-  point features: the SCN SparseUNet or SPVCNN over a precomputed
-  ``UNetPlan``, or SalsaNext over range images, its (B, H, W, C) features
-  gathered at each point's pixel (and the dense ``seg_logit_all`` range
-  logits beside the per-point ones).
+  point features: the SCN SparseUNet, SPVCNN or Point Transformer V3 over a
+  precomputed ``UNetPlan`` (PTv3's with its ``serial`` part), or SalsaNext
+  over range images, its (B, H, W, C) features gathered at each point's
+  pixel (and the dense ``seg_logit_all`` range logits beside the per-point
+  ones).
 
 ``n_domains`` > 1 fuses that many forwards (stacked images; a plan whose
 levels carry domains) with per-domain batch-norm statistics in training.
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from mopa_tpu_torch.common.spans import span
+from mopa_tpu_torch.models.ptv3 import PointTransformerV3
 from mopa_tpu_torch.models.resnet34_unet import UNetResNet34, init_weights
 from mopa_tpu_torch.models.salsanext import SalsaNext
 from mopa_tpu_torch.models.scn_unet import SparseUNet, UNetPlan
@@ -87,7 +89,8 @@ class Net2DSeg(nn.Module):
 
 class Net3DSeg(nn.Module):
     """``backbone_3d`` "SCN", a name containing "SPVCNN" (``in_channels``
-    point features, 5-level plans) or containing "SalsaNext" (5-channel
+    point features, 5-level plans), one starting with "PTv3" (its keyword
+    arguments in ``ptv3_kwargs``) or one containing "SalsaNext" (5-channel
     range images)."""
 
     def __init__(self, num_classes: int, dual_head: bool,
@@ -95,7 +98,8 @@ class Net3DSeg(nn.Module):
                  num_planes: int = 7, block_reps: int = 1,
                  residual_blocks: bool = False, full_scale: int = 4096,
                  compute_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 **ptv3_kwargs):
         super().__init__()
         self.is_range = "SalsaNext" in backbone_3d
         if backbone_3d == "SCN":
@@ -106,6 +110,11 @@ class Net3DSeg(nn.Module):
         elif "SPVCNN" in backbone_3d:
             self.net_3d = SPVCNN(in_channels, compute_dtype=compute_dtype,
                                  generator=generator)
+            width = self.net_3d.out_channels
+        elif backbone_3d.startswith("PTv3"):
+            self.net_3d = PointTransformerV3(
+                in_channels, compute_dtype=compute_dtype,
+                generator=generator, **ptv3_kwargs)
             width = self.net_3d.out_channels
         elif self.is_range:
             # range, x, y, z, intensity (augmentation_3d.build_range_input)
@@ -129,7 +138,8 @@ class Net3DSeg(nn.Module):
         ``proj_in`` (B, H, W, 5) and ``proj_xy`` (B, P, 2) (row, col) pixels
         -> 'feats', 'seg_logit' [, 'seg_logit2'] per point [, SalsaNext's
         'seg_logit_all' (B, H, W, C)]. ``generator`` draws the training-mode
-        dropout masks of SPVCNN and SalsaNext."""
+        dropout masks of SPVCNN and SalsaNext and PTv3's order shuffle and
+        drop-path seed."""
         dense = None
         if self.is_range:
             dense = self.net_3d(proj_in, generator)
@@ -138,7 +148,7 @@ class Net3DSeg(nn.Module):
             px = proj_xy[..., 1].clamp(0, dense.shape[2] - 1)
             rows = torch.arange(b, device=dense.device)[:, None]
             feats = dense[rows, py, px].reshape(b * p, -1)
-        elif isinstance(self.net_3d, SPVCNN):
+        elif isinstance(self.net_3d, (SPVCNN, PointTransformerV3)):
             feats = self.net_3d(point_feats, plan, n_domains, generator)
         else:
             feats = self.net_3d(point_feats, plan, n_domains)

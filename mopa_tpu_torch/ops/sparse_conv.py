@@ -60,10 +60,12 @@ def build_submanifold_plan(table: voxel_ops.VoxelTable,
     :func:`voxel.build_hash`), the hash probes; all give the same map."""
     s, v = table.key.shape
     dev = table.key.device
-    offs_np = kernel_offsets(kernel_size)
-    k = offs_np.shape[0]
+    k = kernel_size ** 3
     half = k // 2
-    offs = torch.as_tensor(offs_np[:half], device=dev)           # (h, 3)
+    # kernel_offsets' order, made on the device (a host array's copy to
+    # the card waits on it)
+    r = torch.arange(-(kernel_size // 2), kernel_size // 2 + 1, device=dev)
+    offs = torch.cartesian_prod(r, r, r)[:half]                   # (h, 3)
     valid = table.valid_mask()
     q = table.coords[:, :, None, :] + offs                       # (S, V, h, 3)
     q_valid = valid[:, :, None] & ((q >= 0) & (q < voxel_ops.SHIFT)).all(-1)

@@ -39,6 +39,7 @@ from mopa_tpu_torch.common.run_ahead import run_ahead
 from mopa_tpu_torch.common.spans import span
 from mopa_tpu_torch.config.xmuda import cfg as default_cfg
 from mopa_tpu_torch.data.build import build_dataloader
+from mopa_tpu_torch.models.build import plan_batch_keys
 from mopa_tpu_torch.models.metric import SegIoU
 from mopa_tpu_torch.parallel import mesh as mesh_mod
 
@@ -67,12 +68,13 @@ def is_ema_key(key: str) -> bool:
 
 
 def _wire_arrays(batch: dict, strip_ema: bool = False,
-                 strip_keys=()) -> dict:
+                 strip_keys=(), keep_keys=()) -> dict:
     """The arrays of a collated numpy batch that cross to the card, as the
     JAX package's ``device_batch`` picks them: no host-only ("_") key, no
     derivable ``batch_idx``/``ori_batch_idx``, none of ``strip_keys``, none
     of the EMA teacher's keys with ``strip_ema``; no voxel coordinates of a
-    group whose host-built plan is shipped; no validity mask that its
+    group whose host-built plan is shipped (unless in ``keep_keys``, the
+    3D net's ``models.build.plan_batch_keys``); no validity mask that its
     count rebuilds (``ori_points_valid`` from ``vgi_num_points`` too); and
     an all-ones feature column of at most 8 channels as the (B, C) float16
     ``feats_ones`` / ``ori_feats_ones`` marker."""
@@ -81,6 +83,8 @@ def _wire_arrays(batch: dict, strip_ema: bool = False,
             return False
         if strip_ema and is_ema_key(k):
             return False
+        if k in keep_keys:
+            return True
         if k == "coords" and "hp_rankn" in batch:
             return False
         if k == "ori_coords" and "hp_ori_rankn" in batch:
@@ -110,14 +114,15 @@ def _wire_arrays(batch: dict, strip_ema: bool = False,
 
 
 def device_batch(batch: dict, device="cuda", strip_ema: bool = False,
-                 strip_keys=()) -> dict:
+                 strip_keys=(), keep_keys=()) -> dict:
     """Copy the :func:`_wire_arrays` of a collated numpy batch to
     ``device`` as tensors of the same dtypes. On a card each array goes
     through pinned host memory and a ``non_blocking`` copy on the current
     stream; on the CPU each is a plain copy."""
     device = torch.device(device)
     out = {}
-    for k, v in _wire_arrays(batch, strip_ema, strip_keys).items():
+    for k, v in _wire_arrays(batch, strip_ema, strip_keys,
+                             keep_keys).items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         if device.type == "cuda":
             out[k] = t.pin_memory().to(device, non_blocking=True)
@@ -127,7 +132,7 @@ def device_batch(batch: dict, device="cuda", strip_ema: bool = False,
 
 
 def device_prefetch(iterator, device="cuda", strip_ema: bool = False,
-                    strip_keys=()):
+                    strip_keys=(), keep_keys=()):
     """Yield :func:`device_batch` of each batch of ``iterator``, made up to
     :data:`PREFETCH_DEPTH` batches ahead on a thread of its own.
 
@@ -148,11 +153,12 @@ def device_prefetch(iterator, device="cuda", strip_ema: bool = False,
         try:
             for b in it:
                 if side is None:
-                    item = (device_batch(b, device, strip_ema, strip_keys),
-                            None)
+                    item = (device_batch(b, device, strip_ema, strip_keys,
+                                         keep_keys), None)
                 else:
                     with torch.cuda.device(device), torch.cuda.stream(side):
-                        t = device_batch(b, device, strip_ema, strip_keys)
+                        t = device_batch(b, device, strip_ema, strip_keys,
+                                         keep_keys)
                         ready = torch.cuda.Event()
                         ready.record(side)
                     item = (t, ready)
@@ -434,17 +440,18 @@ def train(cfg, logger, output_dir="", run_name="", variant="mopa",
         ``start``; before the EMA phase without the teacher's inputs."""
         src = device_prefetch(build_dataloader(
             cfg, "train", "source", start_iteration=start, want_ema=False,
-            **shard), device, strip_ema=True)
+            **shard), device, strip_ema=True, keep_keys=keep)
         trg = None
         if has_trg:
             trg = device_prefetch(build_dataloader(
                 cfg, "train", "target", start_iteration=start,
                 want_ema=ema, **shard), device, strip_ema=not ema,
-                strip_keys=("seg_label",))
+                strip_keys=("seg_label",), keep_keys=keep)
         return src, trg
 
     in_ema = start_iteration >= ema_start
     shard = {} if mesh is None else {"mesh": mesh}  # each rank's block
+    keep = plan_batch_keys(cfg)  # what the 3D net's plan stage reads
     src_iter, trg_iter = streams(start_iteration, in_ema)
     eval_dict = {}
     end = time.time()

@@ -21,10 +21,11 @@ host-built ``hp_*`` / ``hp_ori_*`` / ``hp_cat_*`` keys where it has them,
 else from the device build.
 
 The 3D net is ``MODEL_3D.TYPE``'s: SCN, SPVCNN (a 5-level plan, 4-channel
-point features) or SalsaNext (range images, no plan: its source and target
-forwards run back to back, one batch norm updating its running statistics
-in turn). With ``TRAIN.DEPTH_PRED`` the 2D net's depth head is trained by
-the RMSE against the source's ``depth_label`` (weight
+point features), PTv3 (as SPVCNN, its plan serialized in the plan stage:
+``models.build.extend_plan``) or SalsaNext (range images, no plan: its source
+and target forwards run back to back, one batch norm updating its running
+statistics in turn). With ``TRAIN.DEPTH_PRED`` the 2D net's depth head
+is trained by the RMSE against the source's ``depth_label`` (weight
 ``TRAIN.DEPTH_PRED_COE.lambda_dp_src``). The combinations the JAX package
 cannot run either raise as noted in :func:`make_train_step`.
 
@@ -65,7 +66,8 @@ from mopa_tpu_torch.data.utils.refine_pseudo_labels import \
 from mopa_tpu_torch.models import losses as L
 from mopa_tpu_torch.models import weights
 from mopa_tpu_torch.models.build import (build_model_2d, build_model_3d,
-                                         plan_levels)
+                                         extend_plan, plan_levels,
+                                         point_feature_channels)
 from mopa_tpu_torch.models.metric import confusion_matrix
 from mopa_tpu_torch.models.scn_unet import (HOST_PLAN_KEYS, UNetPlan,
                                             build_unet_plan,
@@ -124,20 +126,22 @@ def build_plan_from_batch(cfg, coords: torch.Tensor, valid_flat: torch.Tensor,
 
     With ``sample_size`` None the reference's monolithic plan of all the
     points (:func:`build_unet_plan`, ``nbr`` levels) over ``batch_idx``
-    (each point's scan), capacities scheduled from the point count."""
+    (each point's scan), capacities scheduled from the point count. The
+    3D net's additions follow (``models.build.extend_plan``)."""
     if sample_size is None:
         if batch_idx is None:
             raise ValueError("the monolithic plan needs batch_idx")
-        return build_unet_plan(coords, batch_idx, valid_flat,
-                               _num_levels(cfg),
-                               capacities=_capacities(cfg, coords.shape[0]),
-                               batch_domains=sample_domains)
+        return extend_plan(cfg, build_unet_plan(
+            coords, batch_idx, valid_flat, _num_levels(cfg),
+            capacities=_capacities(cfg, coords.shape[0]),
+            batch_domains=sample_domains), [coords], None)
     p = int(sample_size)
     s = coords.shape[0] // p
-    return build_unet_plan_batched(coords.reshape(s, p, 3),
+    plan = build_unet_plan_batched(coords.reshape(s, p, 3),
                                    valid_flat.reshape(s, p), _num_levels(cfg),
                                    capacities=_capacities(cfg, p),
                                    sample_domains=sample_domains)
+    return extend_plan(cfg, plan, [coords], s)
 
 
 def device_vgi(cfg, batch_trg: dict, scan_labels: bool,
@@ -186,6 +190,8 @@ def build_train_plan(cfg, batch_src: dict, batch_trg: dict,
                                batch_trg["point_valid"]]),
                     num_levels, capacities=_capacities(cfg, p),
                     sample_domains=doms)
+        plan = extend_plan(cfg, plan, [batch_src.get("coords"),
+                                       batch_trg.get("coords")], 2 * b)
         if not with_vgi:
             return plan, None
         if device_cat is not None:
@@ -398,8 +404,8 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
 
     Raises, where the JAX package cannot run the combination either:
     SalsaNext with VGI or the EMA teacher (``ValueError``; JAX asserts), and
-    SPVCNN with either (``NotImplementedError`` naming ROADMAP Queue 3: the
-    cat scans and the teacher's view carry one feature channel)."""
+    SPVCNN or PTv3 with either (``NotImplementedError`` naming ROADMAP Queue
+    3: the cat scans and the teacher's view carry one feature channel)."""
     lam = cfg.TRAIN.XMUDA
     pc_mm = cfg.TRAIN.PC_MM
     if with_ema and not with_pl:
@@ -410,13 +416,14 @@ def make_train_step(cfg, models: Models, *, with_pl: bool,
         raise ValueError("VGI and the EMA teacher are paths of the voxel "
                          "backbones; the JAX package asserts the same for "
                          "{}".format(cfg.MODEL_3D.TYPE))
-    if "SPVCNN" in cfg.MODEL_3D.TYPE and (with_vgi or with_ema):
+    channels = point_feature_channels(cfg)
+    if channels > 1 and (with_vgi or with_ema):
         raise NotImplementedError(
             "{} with {}: the VGI cat scans and the teacher's view carry one "
-            "all-ones feature channel against SPVCNN's {}; the JAX package "
-            "fails there too (ROADMAP Queue 3)".format(
+            "all-ones feature channel against the net's {}; the JAX package "
+            "fails there too for SPVCNN (ROADMAP Queue 3)".format(
                 cfg.MODEL_3D.TYPE, "VGI" if with_vgi else "the EMA teacher",
-                cfg.MODEL_3D.SPVCNN.in_channels))
+                channels))
     with_depth = bool(cfg.TRAIN.get("DEPTH_PRED", False))
     lambda_dp_src = float(cfg.TRAIN.DEPTH_PRED_COE.lambda_dp_src)
     dual_head = bool(cfg.MODEL_2D.DUAL_HEAD)

@@ -35,6 +35,7 @@ from mopa_tpu_torch.config.xmuda import cfg as port_base_cfg
 from mopa_tpu_torch.data.pspath_sort import pspath_sort as port_pspath
 from mopa_tpu_torch.data.utils.evaluate import Evaluator as PortEvaluator
 from mopa_tpu_torch.models.metric import SegIoU as PortSegIoU
+from test_torch_config import PORT_ONLY
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = ("car", "truck", "bike", "person", "road", "parking",
@@ -257,7 +258,9 @@ def test_purge_cfg_on_shipped_configs(path):
         purge(c)
         removed.append(before - _paths(c))
         kept.append(c)
-    assert removed[1] == removed[0]
+    # the port's own 3D nets' options (which JAX lacks) go with the rest
+    assert {p for p in removed[1] if not (p + ".").startswith(PORT_ONLY)} \
+        == removed[0]
     assert any(p.startswith("DATASET_SOURCE.") for p in removed[1])
     shared = _paths(kept[0]) & _paths(kept[1])
     for key in shared:

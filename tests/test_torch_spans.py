@@ -175,7 +175,7 @@ def test_cpu_step_under_profiler(clean, one_thread):
     assert [s.step for s in steps] == [first, first + 1]
     assert [s.step for s in rec.steps] == [first, first + 1]
     assert all(s.before.keys() == s.after.keys()
-               == {"launches", "dw_pair_route"}
+               == {"launches", "dw_pair_route", "ptv3.attn"}
                for s in rec.steps)
     want = ["train/decode", "train/plan", "train/net2d", "train/net3d",
             "train/losses", "train/backward", "train/optim", "train/ema"]
@@ -329,6 +329,9 @@ class _Trace:
     def __init__(self, kernels):
         self.kernels = kernels
 
+    def kernel_s(self, pred) -> float:
+        return sum(e - s for n, s, e in self.kernels if pred(n)) / 1e9
+
 
 def _launches(k1, k2f, k2w):
     return {"launches": {scc.K1: k1, scc.K2_DFEATS: k2f, scc.K2_DW: k2w,
@@ -372,6 +375,34 @@ def test_readers_on_a_fabricated_record(monkeypatch):
     for name in ("host_syncs.step", "sync_idle_ms.step",
                  "conv_launches.step"):
         assert _reader(name).read(ctx) is None, name
+
+
+def test_attention_readers_on_a_fabricated_record(monkeypatch):
+    """PTv3's readers: the attention kernels' ms a step and their share of
+    the net's least time (kernels named by ``flash``), and the real
+    patches' tokens over the tokens the counter ``ptv3.attn`` ran; None
+    where nothing is read."""
+    C = spans.StepCounts
+    ms = 1_000_000
+    tok = [{"ptv3.attn": {"launches": n, "tokens": t}}
+           for n, t in ((0, 0), (22, 4000), (44, 8000))]
+    rec = spans.Record(steps=[C(0, tok[0], tok[1]), C(1, tok[1], tok[2])])
+    trace = _Trace([("pytorch_flash::flash_fwd_kernel", 0, 3 * ms),
+                    ("pytorch_flash::flash_bwd_dq_dk_dv", 5 * ms, 10 * ms),
+                    ("subm_conv_tc_kernel", 10 * ms, 40 * ms)])
+    ctx = {"trace": trace, "info": {"steps": 2},
+           "work": {"ptv3_attn_least_s": 4e-3, "ptv3_attn_tokens": 6800.0}}
+    monkeypatch.setattr(spans._R, "record", rec)
+    assert _reader("attn_ms.step").read(ctx) == pytest.approx(4.0)
+    assert _reader("attn_roofline.step").read(ctx) == pytest.approx(50.0)
+    assert _reader("attn_fill.step").read(ctx) == pytest.approx(85.0)
+    # no attention kernel, no net count, no trace, no counter: None
+    other = _Trace([("subm_conv_tc_kernel", 0, ms)])
+    assert _reader("attn_ms.step").read(dict(ctx, trace=other)) is None
+    assert _reader("attn_roofline.step").read(dict(ctx, work={})) is None
+    monkeypatch.setattr(spans._R, "record", spans.Record())
+    for name in ("attn_ms.step", "attn_roofline.step", "attn_fill.step"):
+        assert _reader(name).read(dict(ctx, trace=None)) is None, name
 
 
 class _Twice(torch.autograd.Function):
