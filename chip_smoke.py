@@ -456,8 +456,9 @@ def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
     codes = lv.sel.long()
     pairs = sum(int((((codes >> (2 * j)) & 3) != 3).sum()) for j in range(3))
     plan_bytes = 2 * v * 9 * 4
-    # (tile, column) blocks the tensor-core conv kernel stages
-    col_tiles = int(scc.tile_columns(lv.ranks, lv.sel, v).sum())
+    # what K1 / d_feats stage: (tile, column) blocks on the bfloat16 route,
+    # 16-row groups of each (span, offset)'s pairs on the float32 route
+    col_tiles, pair_rows = staged_rows(lv, v)
     for dtype in (torch.float32, torch.bfloat16):
         dt_name = str(dtype).split(".")[-1]
         tag = "{} {} {}".format(plan_name, name, dt_name)
@@ -525,14 +526,19 @@ def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
                 row["bound_share_67"] = max(row["bytes_ms"],
                                             row["ops_ms_67"]) / row["ms"]
             if kernel != K2_DW:
-                # the dense MMA work of the staged (tile, column) blocks:
-                # 3 slots x all channels, pairs or not, per column block
+                # the dense MMA work of what the kernel stages, per column
+                # block: bfloat16, the (tile, column) blocks (3 slots x all
+                # channels, pairs or not); float32, the pair groups
                 k_in = cin if kernel == K1 else cout
                 tiles = [scc.conv_tile_shape(k_in, c1 - c0)
                          for c0, c1 in scc.column_blocks(out_width)]
-                row["tile_ops_ms"] = (2 * col_tiles * scc.TILE_M
-                                      * sum(kp * np_ for kp, np_ in tiles)
-                                      / gm.PEAK_FLOPS[peak] * 1e3)
+                if dtype == torch.float32:
+                    staged = pair_rows * k_in * sum(np_ for _, np_ in tiles)
+                else:
+                    staged = col_tiles * scc.TILE_M * sum(
+                        kp * np_ for kp, np_ in tiles)
+                row["tile_ops_ms"] = (2 * staged / gm.PEAK_FLOPS[peak]
+                                      * 1e3)
             if kernel == K2_DW and name == "l0_conv2":
                 again = kern()
                 row["same_bits_on_rerun"] = bool(torch.equal(got, again))
@@ -550,6 +556,28 @@ def shape_rows(plan_name: str, name: str, lv, cin: int, cout: int,
                   flush=True)
     scc.reset_launch_counts()
     return rows
+
+
+def staged_rows(lv, v: int) -> tuple:
+    """(the (tile, column) blocks the bfloat16 conv kernel stages: those in
+    which some voxel of a ``TILE_M`` tile has a row of the column; the
+    rows the float32 kernel stages: each (span, offset)'s pairs rounded up
+    to 16), from the plan's lists on the card."""
+    import torch
+
+    from mopa_tpu_torch.ops import sparse_conv_cuda as scc
+
+    r = lv.ranks.reshape(v, 9).long()
+    codes = lv.sel.reshape(v, 9)
+    has = torch.zeros((v, 9), dtype=torch.bool, device=r.device)
+    for j in range(3):
+        has |= (((codes >> (2 * j)) & 3) != 3) & (r + j >= 0) & (r + j < v)
+    n = -(-v // scc.TILE_M)
+    has = torch.cat([has, has.new_zeros((n * scc.TILE_M - v, 9))])
+    col_tiles = int(has.reshape(n, scc.TILE_M, 9).any(dim=1).sum())
+    _, _, starts = scc._pair_lists_cuda(lv.ranks, lv.sel, v, scc.PAIR_SPAN)
+    per = (starts[1:] - starts[:-1]).long()
+    return col_tiles, int(((per + 15) // 16 * 16).sum())
 
 
 def tensor_core_routes(tag: str) -> dict:
@@ -580,7 +608,11 @@ def float32_routes(tag: str) -> dict:
 
 
 # a kernel of the three libraries and its template arguments (int, then an
-# optional bool) in a mangled name
+# optional bool) in a mangled name: the bfloat16 conv and d_w kernels
+# (subm_conv_tc_kernel, subm_conv_dw_tc_kernel, subm_conv_dw_reduce), the
+# float32 route's (subm_conv_pairs_f32_tc_kernel and its weight pack
+# subm_conv_pairs_f32_pack; subm_conv_dw_pairs_count / _write, the lists;
+# subm_conv_dw_pairs_f32_tc_kernel, subm_conv_dw_pairs_reduce)
 _KERNEL_NAME = re.compile(r"(subm_conv_(?:dw_)?(?:pairs_)?(?:(?:f32_)?tc_kernel"
                           r"|reduce|f32_pack|count|write)"
                           r"|row_gather_kernel|gather_gemm_tc_kernel)"
@@ -675,11 +707,15 @@ def plain_twins():
     autograd Function then runs K1's and K2's twins on CUDA tensors too."""
     from mopa_tpu_torch.ops import sparse_conv as sc
 
+    def bwd(g, feats, ranks, sel, weight, need_dfeats, need_dw):
+        return (sc.submanifold_conv_wide_dfeats_ref(g, ranks, sel, weight)
+                if need_dfeats else None,
+                sc.submanifold_conv_wide_dw_ref(g, feats, ranks, sel)
+                if need_dw else None)
+
     stack = ExitStack()
     for name, twin in (("_conv_fwd", sc.submanifold_conv_wide_ref),
-                       ("_conv_bwd_dfeats",
-                        sc.submanifold_conv_wide_dfeats_ref),
-                       ("_conv_bwd_dw", sc.submanifold_conv_wide_dw_ref)):
+                       ("_conv_bwd", bwd)):
         stack.enter_context(mock.patch.object(sc, name, twin))
     return stack
 
@@ -3186,15 +3222,15 @@ def backbone_phase(device, report: dict, mopa_target) -> dict:
     plan = trainer.build_train_plan(cfg, decode_batch(src, device),
                                     decode_batch(trg, device), False)[0]
     out["spvcnn_rows_per_level"] = [lv.valid.shape[0] for lv in plan.levels]
-    # the float32 d_w's pair share per level, pairs / (27 V): the device
+    # the float32 route's pair share per level, pairs / (27 V): the device
     # lists' counts, read after a sync (the step never reads them)
     out["spvcnn_pair_share"] = []
     for lv in plan.levels:
         v = lv.valid.shape[0]
-        counts = scc._dw_pair_lists_cuda(lv.ranks, lv.sel, v)[1]
+        counts = scc._pair_lists_cuda(lv.ranks, lv.sel, v)[1]
         torch.cuda.synchronize()
         out["spvcnn_pair_share"].append(int(counts.sum()) / (27 * v))
-    print("SPVCNN plan rows per level {}, d_w pair share {}".format(
+    print("SPVCNN plan rows per level {}, pair share {}".format(
         out["spvcnn_rows_per_level"], out["spvcnn_pair_share"]), flush=True)
     gen = torch.Generator(device=device).manual_seed(13)
     out["wide_rows"], out["conv_rows"] = [], []
@@ -3217,9 +3253,13 @@ def backbone_phase(device, report: dict, mopa_target) -> dict:
     conv_ms = out["spvcnn"]["profile"].get("conv_kernels_ms", {})
     out["spvcnn"]["f32_conv_device_ms"] = sum(
         ms for k, ms in conv_ms.items() if "_f32_" in k)
-    print("SPVCNN traced step: the float32 conv kernels take {:.2f} of {} "
-          "busy device ms; conv kernels by name {}".format(
-              out["spvcnn"]["f32_conv_device_ms"],
+    # K1 / d_feats on the float32 route: the pair kernel and its weight pack
+    out["spvcnn"]["f32_k1_dfeats_device_ms"] = sum(
+        ms for k, ms in conv_ms.items() if k.startswith("subm_conv_pairs_f32"))
+    print("SPVCNN traced step: the float32 conv kernels take {:.2f} (K1 "
+          "and d_feats {:.2f}) of {} busy device ms; conv kernels by name {}"
+          .format(out["spvcnn"]["f32_conv_device_ms"],
+                  out["spvcnn"]["f32_k1_dfeats_device_ms"],
               out["spvcnn"]["profile"].get("device_busy_ms"), conv_ms),
           flush=True)
     out["spvcnn"]["validate"] = backbone_validate(cfg, models, "SPVCNN")

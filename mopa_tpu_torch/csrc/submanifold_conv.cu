@@ -63,36 +63,66 @@
 //
 // * float32 (the checking paths: chip_smoke's f32 rows and its float32
 //   1 + 1 steps; the convergence run; SPVCNN's decoder, float32 as in the
-//   JAX package): subm_conv_f32_tc_kernel, tensor cores in 3xTF32, so
-//   float32 stays within 1e-4 of the plain twin (TF32 alone keeps 11 bits
-//   of 24 and would not). Each operand is split into a TF32 high and low
-//   part, and each product accumulates lo*hi + hi*lo + hi*hi in float32
-//   through mma.sync m16n8k8 (tensor_core.cuh): three MMAs where bf16 has
-//   one, on operands twice as wide, so both the staged bytes and the MMA
-//   work double or triple against the bf16 route. The design is the bf16
-//   kernel's, with these differences:
-//   - A stage is kKC = 32 deep, as in bf16 (one 16-byte cp.async piece is
-//     4 channels), in a 2-stage ring: twice the bytes a stage, and 2
-//     stages of a 192-wide tile fill 161 KB. On the card 32-deep stages
-//     were faster over the MoPA shapes than 16-deep ones in a 3-4 deep
-//     ring.
-//   - Each stage's products sum from zero in registers (a few 16-column
-//     blocks at a time) and join the float32 accumulator by an add. The
-//     MMA's own accumulation drops low bits: chained over a whole column
-//     loop it drifted on the card past chip_smoke's float32 gradient check
-//     (1e-3 of a gradient's largest value, where gradients cancel).
-//   - ldmatrix.trans moves 16-bit elements and cannot transpose float32.
-//     So a first kernel (subm_conv_f32_pack) packs the weight n-major into
-//     a (9, 2, NP, KP) scratch: column c's (3*Cin, Cout) block transposed,
-//     its TF32 high part, then its low part, zero-padded, once per launch.
-//     A plain ldmatrix then gives the B fragments, and B needs no
-//     conversion in the loop. The A fragments come from the voxel-major
-//     windows by a plain ldmatrix too, and are split in registers.
-//   - The mirror mode (d_feats) is the same kernel on the pack of
-//     W' = weight[::-1].transpose(1, 2): the pack is where the two differ.
-//   - The stem (Cin = 1: 4-byte rows) stages with plain loads; SPVCNN's
-//     stem (Cin = 4) is one cp.async a row.
-//   - Epilogue: float32 through shared memory, written as 16-byte rows.
+//   JAX package): subm_conv_pairs_f32_tc_kernel, tensor cores in 3xTF32,
+//   so float32 stays within 1e-4 of the plain twin (TF32 alone keeps 11
+//   bits of 24 and would not). Each operand is split into a TF32 high and
+//   low part, and each product accumulates lo*hi + hi*lo + hi*hi in
+//   float32 through mma.sync m16n8k8 (tensor_core.cuh).
+//   It runs over the neighbour pairs that exist, as the float32 d_w does
+//   (submanifold_conv_dw.cu), and not over dz windows: SPVCNN's decoder
+//   levels hold 1.9 to 12.4 of the 27 pairs a voxel could have, and a
+//   window stages all 3 dz slots of every (dx, dy) column with any pair,
+//   zero-filled: 2.0x (level 3) to 6.9x (level 0) the rows of the pairs,
+//   in 16-row groups. What bounds it: 3 * 2 * Cin * Cout TF32 MMA
+//   operations a pair (in 16-row groups: 1.12x the pairs at level 3, 1.9x
+//   at level 0) against the gathered bytes, 4 * Cin a pair, and the
+//   weight's, 8 * Cin * NP per (span, offset) with pairs. On the card the
+//   MMAs and the loads overlap poorly: at level 3, 384 -> 128, a launch
+//   takes 4.36 ms, and 2.20 ms with the MMAs taken out, against 0.69 ms
+//   for its 1.15 M padded rows x 384 x 128 x 6 operations at the TF32
+//   peak. Design:
+//   - The lists: subm_conv_dw_pairs_count / _write list each offset k's
+//     (output voxel, input row) pairs ascending by voxel, from the plan
+//     alone, with a span table: starts[s][k], the first of list k's
+//     pairs whose voxel lies in span s. Built once per conv call (K1) and
+//     once per backward (d_feats and d_w together), shared by the column
+//     blocks; no host wait. K1 multiplies list k by weight[26 - k],
+//     d_feats by weight[k]^T (the mirror: u is v's neighbour at offset o
+//     iff v is u's at -o).
+//   - Output-stationary: a CTA owns a span of kSpan = 128 output voxels x
+//     one column block (NP <= 192), its float32 sums in shared memory
+//     ([128][NP + 4]). For each offset with pairs, in order, it gathers
+//     the rows of the span's pairs at that offset by cp.async, in 16-row
+//     groups (zero past the pairs), KC channels a stage, with the weight
+//     block of the offset beside them; warps split the groups and the
+//     output columns. At the offset's last stage each warp adds its sums
+//     into the pairs' rows of the span's accumulator: the rows of one
+//     offset are distinct, and the barriers between stages order the
+//     offsets, so every sum is added in one fixed order. No atomics, no
+//     cross-CTA reduction: the same inputs give the same bits.
+//   - The weight reckoning: every (span, offset) with pairs reads the
+//     offset's Cin x NP block, so at level 3 (~43 pairs a span and offset)
+//     the weight bytes are ~3x the gathered bytes at 4 bytes an element.
+//     The two levers: a wider span would halve them, but its accumulator
+//     does not fit beside the ring; the plain float32 block split once a
+//     stage in shared memory (half the bytes of a (hi, lo) pack) measured
+//     slower on the card, the split pass and its second barrier costing
+//     more than the bytes saved (384 -> 128 at level 3: 4.66 against 4.33
+//     ms, and 4.85 with 8 warps in place of 16). So a first kernel
+//     (subm_conv_pairs_f32_pack) packs the block n-major and split into a
+//     (27, 2, NP, kpc) scratch once per launch (ldmatrix cannot transpose
+//     32-bit elements), and the A fragments are split in registers.
+//   - Each MMA's three products sum from zero and join the offset's sums
+//     by a float32 add: the MMA's own accumulation drops low bits, and
+//     chained over a whole column loop it drifted on the card past
+//     chip_smoke's float32 gradient check (1e-3 of a gradient's largest
+//     value, where gradients cancel). The three MMAs of the 8-wide blocks
+//     are issued block-interleaved (all lo*hi, then all hi*lo, then all
+//     hi*hi), in mma_3xtf32's order within a block: the same sums.
+//   - 8 warps a CTA: one CTA an SM from NP = 96 (the accumulator and the
+//     ring fill it), two below.
+//   - The stem (Cin = 1: 4-byte rows) gathers with plain loads.
+//   - Epilogue: the accumulator written as 16-byte rows.
 
 #include "tensor_core.cuh"
 
@@ -382,182 +412,234 @@ int launch_tc(const bf16* f, const int* r, const int* s, const bf16* w,
 
 // ---------------------------------------------------------------- float32
 
-constexpr int kStages32 = 2;          // cp.async ring depth
-constexpr int kPitch32 = kKC + 4;     // floats per staged A / B row
+constexpr int kSpan = 128;            // output voxels per CTA
+constexpr int kMaxGroups = kSpan / 16;
+constexpr int kOffsets = 27;
+constexpr int kPackK = 32;            // the weight pack's K padding
 
-// floats of one ring stage: A [kTileM][kPitch32], then B's high and low
-// parts, each [NP][kPitch32].
-__host__ __device__ constexpr int f32_stage_floats(int np) {
-  return (kTileM + 2 * np) * kPitch32;
+// K depth of one pipeline stage at NP = 16 * NT: 16 where a 32-deep ring
+// would not fit (NP = 192; two CTAs an SM up to NP = 64), else 32.
+__host__ __device__ constexpr int pair_kc(int np) {
+  return np <= 64 || np > 128 ? 16 : 32;
 }
 
-// Dynamic shared memory of the NP-wide float32 kernel: the resolved rows,
-// the column list, then the ring of stages, which the epilogue's
-// [kTileM][NP + 8] tile reuses.
-constexpr int f32_smem_bytes(int np) {
-  return (27 * kTileM + kFlags) * 4
-         + 4 * (kStages32 * f32_stage_floats(np) > kTileM * (np + 8)
-                    ? kStages32 * f32_stage_floats(np)
-                    : kTileM * (np + 8));
+// Warps along the output columns at NP = 16 * NT: each holds 8 * N8
+// columns, N8 = 2 * NT / WN whole 8-wide MMA blocks; the other 8 / WN warps
+// split the pair groups.
+__host__ __device__ constexpr int pair_wn(int nt) {
+  return nt == 1 || nt == 3 ? 2 : 4;
 }
 
-// The float32 kernel's B operand from the FORWARD weight (as
-// subm_conv_tc_kernel reads it: (27, cin, cout) when !mirror, (27, cout,
-// cin) when mirror): pack (9, 2, np, kp), pack[c][0][n][k] and
-// pack[c][1][n][k] the TF32 high and low parts of column c's B[k][n], zero
-// beyond 3*cin rows and cout columns. n-major, so that ldmatrix gives the
-// B fragments with no transpose; split once per launch, not per MMA.
-__global__ void subm_conv_f32_pack(const float* __restrict__ weight,
-                                   float* __restrict__ pack, int cin,
-                                   int cout, int kp, int np, int mirror) {
-  const long long total = 9LL * np * kp;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
-                     + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int k = static_cast<int>(i % kp);
-    const int n = static_cast<int>((i / kp) % np);
-    const int c = static_cast<int>(i / (static_cast<long long>(kp) * np));
-    float b = 0.f;
-    if (k < 3 * cin && n < cout) {
-      const int t = k / cin;
-      const int ci = k - t * cin;
-      b = mirror
-              ? weight[(static_cast<size_t>(26 - 3 * c - t) * cout + n) * cin
-                       + ci]
-              : weight[(static_cast<size_t>(3 * c + t) * cin + ci) * cout
-                       + n];
+// floats of one ring stage: A [kSpan][kc + 4], then B's high and low
+// parts, each [NP][kc + 4] (n-major, as the pack lies).
+__host__ __device__ constexpr int pair_stage_floats(int np) {
+  return (kSpan + 2 * np) * (pair_kc(np) + 4);
+}
+
+// Bytes before the ring: the span's accumulator [kSpan][NP + 4], the
+// pair entries (input row, output row in the span) of up to 27 * kSpan
+// pairs, the per-offset table.
+__host__ __device__ constexpr int pair_head_bytes(int np) {
+  return kSpan * (np + 4) * 4 + kOffsets * kSpan * 5 + 4 * 4 * 32;
+}
+
+// Ring depth: as many stages (2 to 4) as fit beside the head, within half
+// the SM's shared memory up to NP = 64 (two CTAs an SM) and all of it above.
+__host__ __device__ constexpr int pair_stages(int np) {
+  const int budget = np <= 64 ? 113 * 1024 : 227 * 1024;
+  const int free_b = budget - pair_head_bytes(np);
+  const int per = pair_stage_floats(np) * 4;
+  return free_b >= 4 * per ? 4 : free_b >= 3 * per ? 3 : 2;
+}
+
+__host__ __device__ constexpr int pair_smem_bytes(int np) {
+  return pair_head_bytes(np) + pair_stages(np) * pair_stage_floats(np) * 4;
+}
+
+// The B operand of every list, split: pack (27, 2, np, kpc), pack[k][0]
+// and pack[k][1] the TF32 high and low parts of list k's (kpc, np) block
+// B, transposed (n-major) so that ldmatrix gives its fragments: forward
+// (weight (27, cin, cout)) B[kk][n] = weight[26 - k][kk][n]; mirror
+// (weight (27, cout, cin)) B[kk][n] = weight[k][n][kk]; zero past cin rows
+// and cout columns. Through a 32 x 32 shared tile, so that reads and
+// writes are both coalesced; grid (kpc / 32, np / 32 rounded up, 27),
+// block (32, 8).
+__global__ void subm_conv_pairs_f32_pack(const float* __restrict__ weight,
+                                         float* __restrict__ pack, int cin,
+                                         int cout, int kpc, int np,
+                                         int mirror) {
+  __shared__ float tile[32][33];  // [kk][n]
+  const int k = blockIdx.z;
+  const int kk0 = blockIdx.x * 32;
+  const int n0 = blockIdx.y * 32;
+  const int tx = threadIdx.x;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    if (!mirror) {  // rows kk, along n
+      const int kk = kk0 + r;
+      const int n = n0 + tx;
+      tile[r][tx] = kk < cin && n < cout
+          ? weight[(static_cast<size_t>(26 - k) * cin + kk) * cout + n]
+          : 0.f;
+    } else {  // rows n, along kk
+      const int n = n0 + r;
+      const int kk = kk0 + tx;
+      tile[tx][r] = n < cout && kk < cin
+          ? weight[(static_cast<size_t>(k) * cout + n) * cin + kk]
+          : 0.f;
     }
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int n = n0 + r;
+    const int kk = kk0 + tx;
+    if (n >= np) continue;
     uint32_t hi, lo;
-    mopa_tc::tf32_split(b, hi, lo);
-    float* p = pack + (static_cast<size_t>(c) * 2 * np + n) * kp + k;
+    mopa_tc::tf32_split(tile[tx][r], hi, lo);
+    float* p = pack + (static_cast<size_t>(2 * k) * np + n) * kpc + kk;
     p[0] = __uint_as_float(hi);
-    p[static_cast<size_t>(np) * kp] = __uint_as_float(lo);
+    p[static_cast<size_t>(np) * kpc] = __uint_as_float(lo);
   }
 }
 
-// NT = NP / 16. feats (V, cin) and out (V, cout) float32; wpack the
-// (9, 2, NP, kp) pack of subm_conv_f32_pack. The forward (K1) and the
-// mirror (d_feats) differ only in the pack. Two CTAs an SM up to NP = 64:
-// at NP = 96 the split fragments do not fit 128 registers a thread (ptxas
-// spills).
+// K1 or K2 d_feats over the pair lists, 3xTF32. feats (V, cin) and out
+// (V, cout) float32; pairs (27, V) int2 and starts (ceil(V / kSpan) + 1,
+// 27) int32 from mopa_subm_conv_pairs: list k holds (output voxel, input
+// row) pairs ascending by voxel, and span s's pairs of offset k are list
+// k's entries [starts[s][k], starts[s + 1][k]). pack is
+// subm_conv_pairs_f32_pack's (27, 2, NP, kpc): K1 and d_feats differ only
+// there. One CTA a span; NT = NP / 16 >= cout / 16.
 template <int NT>
 __global__ void __launch_bounds__(kThreads, NT <= 4 ? 2 : 1)
-subm_conv_f32_tc_kernel(const float* __restrict__ feats,
-                        const int* __restrict__ ranks,
-                        const int* __restrict__ sel,
-                        const float* __restrict__ wpack,
-                        float* __restrict__ out, int V, int cin, int cout,
-                        int kp) {
+subm_conv_pairs_f32_tc_kernel(const float* __restrict__ feats,
+                              const int2* __restrict__ pairs,
+                              const int* __restrict__ starts,
+                              const float* __restrict__ pack,
+                              float* __restrict__ out, int V, int cin,
+                              int cout, int kpc) {
   using namespace mopa_tc;
   constexpr int NP = 16 * NT;
-  constexpr int kS = kStages32;
-  constexpr int kAStage = kTileM * kPitch32;
-  constexpr int kBStage = NP * kPitch32;  // one of the high, low parts
-  constexpr int kStage = f32_stage_floats(NP);
-  constexpr int kOpitch = NP + 8;
-  // 16-column blocks whose stage sums are held at once: half the blocks
-  // above 4, so the partial sums fit the registers beside the accumulator
-  constexpr int kGroup = NT <= 4 ? NT : NT / 2;
+  constexpr int KC = pair_kc(NP);
+  constexpr int kPitch = KC + 4;         // floats per staged A or B row
+  constexpr int WN = pair_wn(NT);
+  constexpr int WM = kWarps / WN;
+  constexpr int N8 = 2 * NT / WN;        // 8-wide blocks a warp holds
+  constexpr int MT = kMaxGroups / WM;    // 16-pair groups a warp may hold
+  constexpr int kS = pair_stages(NP);
+  constexpr int kStage = pair_stage_floats(NP);
+  constexpr int kAccPitch = NP + 4;
+  static_assert(N8 * WN == 2 * NT && MT * WM == kMaxGroups, "warp tiling");
+  static_assert(pair_smem_bytes(NP) <= 227 * 1024, "shared memory");
   extern __shared__ __align__(16) unsigned char smem[];
-  int* src_s = reinterpret_cast<int*>(smem);  // [27][kTileM] source rows
-  int* flag_s = src_s + 27 * kTileM;          // [0, 9) active, [16, 25) list
-  float* ring = reinterpret_cast<float*>(flag_s + kFlags);
+  float* acc_s = reinterpret_cast<float*>(smem);   // [kSpan][kAccPitch]
+  int* in_s = reinterpret_cast<int*>(acc_s + kSpan * kAccPitch);
+  int* tab_s = in_s + kOffsets * kSpan;  // [0,32) count, [32,64) start,
+                                         // [64,96) base, [96,128) offsets
+  unsigned char* out_s = reinterpret_cast<unsigned char*>(tab_s + 4 * 32);
+  float* ring = reinterpret_cast<float*>(smem + pair_head_bytes(NP));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long v0 = static_cast<long long>(blockIdx.x) * kTileM;
+  const int gq = lane >> 2;
+  const int q = lane & 3;
+  const int wr = warp / WN;              // group row of this warp
+  const int n0 = (warp % WN) * 8 * N8;   // its first output column
+  const int s = blockIdx.x;
+  const long long v0 = static_cast<long long>(s) * kSpan;
 
-  for (int i = tid; i < 27 * kTileM; i += kThreads) src_s[i] = -1;
-  if (tid < kFlags) flag_s[tid] = 0;
+  for (int i = tid; i < kSpan * kAccPitch / 4; i += kThreads)
+    reinterpret_cast<float4*>(acc_s)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < kOffsets) {
+    const int a = starts[static_cast<size_t>(s) * kOffsets + tid];
+    tab_s[tid] = starts[static_cast<size_t>(s + 1) * kOffsets + tid] - a;
+    tab_s[32 + tid] = a;
+  }
   __syncthreads();
-  for (int i = tid; i < kTileM * 9; i += kThreads) {
-    const int lv = i / 9;
-    const int c = i % 9;
-    const long long v = v0 + lv;
-    if (v >= V) continue;
-    const int r = ranks[v * 9 + c];
-    const int code = sel[v * 9 + c];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int t = (code >> (2 * j)) & 3;
-      const long long row = static_cast<long long>(r) + j;
-      if (t < 3 && row >= 0 && row < V) {
-        src_s[(3 * c + t) * kTileM + lv] = static_cast<int>(row);
-        flag_s[c] = 1;
-      }
+  if (tid == 0) {  // the offsets with pairs, in order, and their entries
+    int n = 0, base = 0;
+    for (int k = 0; k < kOffsets; ++k) {
+      if (tab_s[k] == 0) continue;
+      tab_s[96 + n] = k;
+      tab_s[64 + n++] = base;
+      base += tab_s[k];
+    }
+    tab_s[127] = n;
+  }
+  __syncthreads();
+  const int n_off = tab_s[127];
+  // each offset's entries (at most kSpan of them), two offsets a pass
+  for (int a = tid / kSpan; a < n_off; a += kThreads / kSpan) {
+    const int k = tab_s[96 + a];
+    const int i = tid % kSpan;
+    if (i < tab_s[k]) {
+      const int2 pr =
+          pairs[static_cast<size_t>(k) * V + tab_s[32 + k] + i];
+      in_s[tab_s[64 + a] + i] = pr.y;
+      out_s[tab_s[64 + a] + i] = static_cast<unsigned char>(pr.x - v0);
     }
   }
   __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int c = 0; c < 9; ++c)
-      if (flag_s[c]) flag_s[16 + n++] = c;
-    flag_s[kFlags - 1] = n;
-  }
-  __syncthreads();
 
-  const int nck = kp / kKC;  // stages per column
-  const int n_items = flag_s[kFlags - 1] * nck;
-  const int kcol = 3 * cin;
-  const bool vec_a = (cin % 4) == 0;
+  const int nck = (cin + KC - 1) / KC;  // stages per offset
+  const int n_items = n_off * nck;
+  const bool vec_a = cin % 4 == 0
+      && (reinterpret_cast<uintptr_t>(feats) & 15) == 0;
 
-  // Stage `item` (column list[item / nck], K rows [k0, k0 + kKC)) into
-  // ring slot `slot`.
+  // Stage item `item` (offset list[item / nck], K rows [k0, k0 + KC)) into
+  // ring slot `slot`: the gathered rows of the offset's pairs, zero up to
+  // whole 16-row groups and past cin, and the pack's block.
   auto load = [&](int item, int slot) {
-    const int c = flag_s[16 + item / nck];
-    const int k0 = (item % nck) * kKC;
+    const int a = item / nck;
+    const int k = tab_s[96 + a];
+    const int n = tab_s[k];
+    const int base = tab_s[64 + a];
+    const int rows = (n + 15) & ~15;
+    const int k0 = (item % nck) * KC;
     float* a_s = ring + slot * kStage;
-    float* b_s = a_s + kAStage;
+    float* b_s = a_s + kSpan * kPitch;
     if (vec_a) {
-      // thread's 16-byte piece s = tid % 4 of rows tid / 4 + 64 i
-      const int k = k0 + 4 * (tid % (kKC / 4));
-      const int t = k < kcol ? k / cin : 0;
-      const int ci = k - t * cin;
-      for (int lv = tid / (kKC / 4); lv < kTileM;
-           lv += kThreads / (kKC / 4)) {
-        const int row = k < kcol ? src_s[(3 * c + t) * kTileM + lv] : -1;
+      for (int i = tid; i < rows * (KC / 4); i += kThreads) {
+        const int r = i / (KC / 4);
+        const int c = k0 + 4 * (i % (KC / 4));
+        const bool ok = r < n && c < cin;
         const float* src =
-            row >= 0 ? feats + static_cast<size_t>(row) * cin + ci : feats;
-        cp_async16(smem_u32(a_s + lv * kPitch32 + (k - k0)), src, row >= 0);
+            ok ? feats + static_cast<size_t>(in_s[base + r]) * cin + c
+               : feats;
+        cp_async16(smem_u32(a_s + r * kPitch + c - k0), src, ok);
       }
-    } else {  // rows narrower than 16 bytes (the stem): plain loads,
-              // voxels across the threads so the few real K rows spread
-      for (int i = tid; i < kTileM * kKC; i += kThreads) {
-        const int lv = i % kTileM;
-        const int k = k0 + i / kTileM;
-        float val = 0.f;
-        if (k < kcol) {
-          const int t = k / cin;
-          const int row = src_s[(3 * c + t) * kTileM + lv];
-          if (row >= 0)
-            val = feats[static_cast<size_t>(row) * cin + (k - t * cin)];
-        }
-        a_s[lv * kPitch32 + (k - k0)] = val;
+    } else {  // rows narrower than 16 bytes (the stem): plain loads
+      for (int i = tid; i < rows * KC; i += kThreads) {
+        const int r = i / KC;
+        const int c = k0 + i % KC;
+        a_s[r * kPitch + c - k0] =
+            r < n && c < cin
+                ? feats[static_cast<size_t>(in_s[base + r]) * cin + c]
+                : 0.f;
       }
     }
-    // B: rows [0, NP) the high part, [NP, 2 NP) the low part of column c,
-    // K columns [k0, k0 + kKC): dense, padded by the wrapper
-    const float* wc = wpack + static_cast<size_t>(c) * 2 * NP * kp + k0;
-    for (int i = tid; i < 2 * NP * (kKC / 4); i += kThreads) {
-      const int r = i / (kKC / 4);
-      const int kk = 4 * (i % (kKC / 4));
-      cp_async16(smem_u32(b_s + r * kPitch32 + kk),
-                 wc + static_cast<size_t>(r) * kp + kk, true);
+    // B: rows [0, NP) the high part, [NP, 2 NP) the low part of list k,
+    // K columns [k0, k0 + KC): dense, padded by the pack
+    const float* wk = pack + static_cast<size_t>(2 * k) * NP * kpc + k0;
+    for (int i = tid; i < 2 * NP * (KC / 4); i += kThreads) {
+      const int r = i / (KC / 4);
+      const int kk = 4 * (i % (KC / 4));
+      cp_async16(smem_u32(b_s + r * kPitch + kk),
+                 wk + static_cast<size_t>(r) * kpc + kk, true);
     }
   };
 
-  float acc[NT][2][4];
+  // the offset's sums of this warp's groups (m-tile i is group wr + WM i)
+  float acc[MT][N8][4];
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < N8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][h][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < kS - 1; ++s) {
-    if (s < n_items) load(s, s);
+  for (int st = 0; st < kS - 1; ++st) {
+    if (st < n_items) load(st, st);
     cp_async_commit();
   }
   for (int it = 0; it < n_items; ++it) {
@@ -566,137 +648,184 @@ subm_conv_f32_tc_kernel(const float* __restrict__ feats,
     const int next = it + kS - 1;
     if (next < n_items) load(next, next % kS);
     cp_async_commit();
+    const int a = it / nck;
+    const int k = tab_s[96 + a];
+    const int n = tab_s[k];
+    const int groups = (n + 15) >> 4;
+    if (wr >= groups) continue;  // uniform per warp; no scatter either
+    const int k0 = (it % nck) * KC;
+    const int ksteps = (min(KC, cin - k0) + 7) / 8;
     const float* a_s = ring + (it % kS) * kStage;
-    const float* bh_s = a_s + kAStage;
-    const float* bl_s = bh_s + kBStage;
-    // The stage's products sum from zero, kGroup 16-column blocks at a
-    // time, and join the accumulator by a float32 add (see the header).
-#pragma unroll
-    for (int j0 = 0; j0 < NT; j0 += kGroup) {
-      float part[kGroup][2][4] = {};
-      // not unrolled: unrolled, ptxas hoists the next k-steps' loads and
-      // spills at NT = 4 and 12
+    const float* bh_s = a_s + kSpan * kPitch;
+    const float* bl_s = bh_s + NP * kPitch;
 #pragma unroll 1
-      for (int ks = 0; ks < kKC / 8; ++ks) {
-        // matrix i of the x4: rows + 8 (i % 2), K + 4 (i / 2) -> a0..a3
-        uint32_t a[4], a_hi[4], a_lo[4];
-        ldsm_x4(smem_u32(a_s + (warp * 16 + (lane & 15)) * kPitch32
-                         + ks * 8 + (lane >> 4) * 4),
-                a);
+    for (int ks = 0; ks < ksteps; ++ks) {
+      // B of 8-wide block j: x4 matrix m is columns n0 + 16 (j / 2) +
+      // 8 (m / 2), K + 4 (m % 2); an odd last block by x2
+      uint32_t bh[N8][2], bl[N8][2];
+#pragma unroll
+      for (int j = 0; j + 1 < N8; j += 2) {
+        const int off = (n0 + 8 * j + (lane & 7) + (lane >> 4) * 8) * kPitch
+            + ks * 8 + ((lane >> 3) & 1) * 4;
+        uint32_t r[4];
+        ldsm_x4(smem_u32(bh_s + off), r);
+        bh[j][0] = r[0]; bh[j][1] = r[1]; bh[j + 1][0] = r[2];
+        bh[j + 1][1] = r[3];
+        ldsm_x4(smem_u32(bl_s + off), r);
+        bl[j][0] = r[0]; bl[j][1] = r[1]; bl[j + 1][0] = r[2];
+        bl[j + 1][1] = r[3];
+      }
+      if (N8 % 2) {
+        const int off = (n0 + 8 * (N8 - 1) + (lane & 7)) * kPitch + ks * 8
+            + ((lane >> 3) & 1) * 4;
+        ldsm_x2(smem_u32(bh_s + off), bh[N8 - 1]);
+        ldsm_x2(smem_u32(bl_s + off), bl[N8 - 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int grp = wr + WM * i;
+        if (grp >= groups) break;  // uniform per warp
+        // matrix m of the x4: rows + 8 (m % 2), K + 4 (m / 2) -> a0..a3
+        uint32_t av[4], a_hi[4], a_lo[4];
+        ldsm_x4(smem_u32(a_s + (grp * 16 + (lane & 15)) * kPitch + ks * 8
+                         + (lane >> 4) * 4),
+                av);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          tf32_split(__uint_as_float(a[e]), a_hi[e], a_lo[e]);
+          tf32_split(__uint_as_float(av[e]), a_hi[e], a_lo[e]);
+        // each block's three products from zero, then a float32 add
+        // (header); the blocks' MMAs interleaved so that no MMA waits on
+        // the one before it (mma_3xtf32's order within each block)
+        float part[N8][4];
 #pragma unroll
-        for (int jj = 0; jj < kGroup; ++jj) {
-          // matrix i of the x4: columns n + 8 (i / 2), K + 4 (i % 2);
-          // b[0], b[1]: output columns 16j..16j+7; b[2], b[3]: +8
-          const int off =
-              ((j0 + jj) * 16 + (lane & 7) + (lane >> 4) * 8) * kPitch32
-              + ks * 8 + ((lane >> 3) & 1) * 4;
-          uint32_t bh[4], bl[4];
-          ldsm_x4(smem_u32(bh_s + off), bh);
-          ldsm_x4(smem_u32(bl_s + off), bl);
-          mma_3xtf32(part[jj][0], a_hi, a_lo, bh[0], bh[1], bl[0], bl[1]);
-          mma_3xtf32(part[jj][1], a_hi, a_lo, bh[2], bh[3], bl[2], bl[3]);
+        for (int j = 0; j < N8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < N8; ++j)
+          mma_tf32(part[j], a_lo, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < N8; ++j)
+          mma_tf32(part[j], a_hi, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < N8; ++j)
+          mma_tf32(part[j], a_hi, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < N8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[j][e];
+      }
+    }
+    if (it % nck != nck - 1) continue;
+    // the offset's last stage: add its sums into the span's rows (distinct
+    // within an offset; the next stage's barrier orders the offsets)
+    const int base = tab_s[64 + a];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int grp = wr + WM * i;
+      if (grp < groups) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = grp * 16 + gq + 8 * h;
+          if (r < n) {
+            float* dst = acc_s + out_s[base + r] * kAccPitch + n0 + 2 * q;
+#pragma unroll
+            for (int j = 0; j < N8; ++j) {
+              float2* p = reinterpret_cast<float2*>(dst + 8 * j);
+              float2 x = *p;
+              x.x += acc[i][j][2 * h];
+              x.y += acc[i][j][2 * h + 1];
+              *p = x;
+            }
+          }
         }
       }
 #pragma unroll
-      for (int jj = 0; jj < kGroup; ++jj)
+      for (int j = 0; j < N8; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j0 + jj][h][e] += part[jj][h][e];
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // the ring is free: stage the output tile there
+  __syncthreads();  // every offset's sums are in acc_s
 
-  float* o_s = ring;  // [kTileM][kOpitch]
-  const int g = lane >> 2;
-  const int q = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = j * 16 + h * 8 + 2 * q;
-      const int row = warp * 16 + g;
-      *reinterpret_cast<float2*>(o_s + row * kOpitch + col) =
-          make_float2(acc[j][h][0], acc[j][h][1]);
-      *reinterpret_cast<float2*>(o_s + (row + 8) * kOpitch + col) =
-          make_float2(acc[j][h][2], acc[j][h][3]);
-    }
-  __syncthreads();
   if (cout % 4 == 0) {
     const int segs = cout / 4;
-    for (int i = tid; i < kTileM * segs; i += kThreads) {
+    for (int i = tid; i < kSpan * segs; i += kThreads) {
       const int lv = i / segs;
-      const int s = i % segs;
+      const int sg = i % segs;
       const long long v = v0 + lv;
       if (v < V)
-        *reinterpret_cast<float4*>(out + v * cout + 4 * s) =
-            *reinterpret_cast<const float4*>(o_s + lv * kOpitch + 4 * s);
+        *reinterpret_cast<float4*>(out + v * cout + 4 * sg) =
+            *reinterpret_cast<const float4*>(acc_s + lv * kAccPitch + 4 * sg);
     }
   } else {
-    for (int i = tid; i < kTileM * cout; i += kThreads) {
+    for (int i = tid; i < kSpan * cout; i += kThreads) {
       const int lv = i / cout;
       const int co = i % cout;
       const long long v = v0 + lv;
-      if (v < V) out[v * cout + co] = o_s[lv * kOpitch + co];
+      if (v < V) out[v * cout + co] = acc_s[lv * kAccPitch + co];
     }
   }
 }
 
 template <int NT>
-int launch_f32_tc(const float* f, const int* r, const int* s,
-                  const float* w, float* o, int V, int cin, int cout, int kp,
-                  cudaStream_t st) {
+int launch_pairs_f32(const float* f, const int2* p, const int* st,
+                     const float* pk, float* o, int V, int cin, int cout,
+                     int kpc, cudaStream_t stream) {
   static bool granted = false;  // per instance
-  const int smem = f32_smem_bytes(16 * NT);
+  const int smem = pair_smem_bytes(16 * NT);
   if (!granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        subm_conv_f32_tc_kernel<NT>,
+        subm_conv_pairs_f32_tc_kernel<NT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = true;
   }
-  subm_conv_f32_tc_kernel<NT>
-      <<<(V + kTileM - 1) / kTileM, kThreads, smem, st>>>(f, r, s, w, o, V,
-                                                         cin, cout, kp);
+  subm_conv_pairs_f32_tc_kernel<NT>
+      <<<(V + kSpan - 1) / kSpan, kThreads, smem, stream>>>(f, p, st, pk, o,
+                                                           V, cin, cout,
+                                                           kpc);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K1 and K2 d_feats on the float32 route (3xTF32 tensor cores); arguments
-// as mopa_subm_conv_tc's, in float32, plus `pack`, a (9, 2, np, kp) float32
-// scratch that the first of the two kernels launched fills with the split
-// weight (subm_conv_f32_pack). Launches both on `stream` and returns
-// cudaGetLastError().
-extern "C" int mopa_subm_conv_f32(const void* feats, const void* ranks,
-                                  const void* sel, const void* weight,
+// K1 and K2 d_feats on the float32 route (3xTF32 tensor cores), over the
+// pair lists of mopa_subm_conv_pairs (submanifold_conv_dw.cu). feats (V,
+// cin) and out (V, cout) float32, contiguous; pairs (27, V) int2 and starts
+// (ceil(V / span) + 1, 27) int32, written for span = kSpan (128) voxels;
+// weight the FORWARD weight in place, float32, as mopa_subm_conv_tc takes
+// it (mirror = 1: d_feats, feats the cotangent); pack a (27, 2, np, kpc)
+// float32 scratch, kpc = cin rounded up to 32, that the first of the two
+// kernels launched fills with the split weight (subm_conv_pairs_f32_pack);
+// np one of 16, 32, 48, 64, 96, 128, 192 and >= cout. Launches both on
+// `stream` and returns cudaGetLastError().
+extern "C" int mopa_subm_conv_f32(const void* feats, const void* pairs,
+                                  const void* starts, const void* weight,
                                   void* pack, void* out, int V, int cin,
-                                  int cout, int mirror, int kp, int np,
+                                  int cout, int mirror, int np, int span,
                                   void* stream) {
   if (V <= 0) return 0;
-  if (cin < 1 || cout < 1 || cout > np || kp % kKC != 0 || kp < 3 * cin)
+  const int kpc = (cin + kPackK - 1) / kPackK * kPackK;
+  if (cin < 1 || cout < 1 || cout > np || span != kSpan)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* f = static_cast<const float*>(feats);
-  const int* r = static_cast<const int*>(ranks);
-  const int* s = static_cast<const int*>(sel);
-  float* w = static_cast<float*>(pack);
+  const int2* p = static_cast<const int2*>(pairs);
+  const int* st = static_cast<const int*>(starts);
+  float* pk = static_cast<float*>(pack);
   float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long total = 9LL * np * kp;
-  const long long blocks = total / 256 + 1;
-  subm_conv_f32_pack<<<static_cast<unsigned>(blocks < 1056 ? blocks : 1056),
-                       256, 0, st>>>(static_cast<const float*>(weight), w,
-                                     cin, cout, kp, np, mirror);
+  cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
+  subm_conv_pairs_f32_pack<<<dim3(kpc / 32, (np + 31) / 32, kOffsets),
+                             dim3(32, 8), 0, stream_>>>(
+      static_cast<const float*>(weight), pk, cin, cout, kpc, np, mirror);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   switch (np) {
 #define MOPA_CASE(NT)                                                      \
     case 16 * NT:                                                          \
-      return launch_f32_tc<NT>(f, r, s, w, o, V, cin, cout, kp, st);
+      return launch_pairs_f32<NT>(f, p, st, pk, o, V, cin, cout, kpc,      \
+                                  stream_);
     MOPA_CASE(1) MOPA_CASE(2) MOPA_CASE(3) MOPA_CASE(4) MOPA_CASE(6)
     MOPA_CASE(8) MOPA_CASE(12)
 #undef MOPA_CASE

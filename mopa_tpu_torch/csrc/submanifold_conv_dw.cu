@@ -76,7 +76,11 @@
 //     pairs, ascending by voxel, after the earlier blocks' (warp ballots,
 //     then a scan over the warps), into a list of capacity V per offset,
 //     and the last block writes the counts. Every grid is sized from V:
-//     no host wait.
+//     no host wait. The same lists feed K1 and d_feats on this route
+//     (submanifold_conv.cu): for them the write kernel also records where
+//     each span of output voxels begins in each list (a span starts at
+//     some warp's first voxel, whose slot the scan already gives), and a
+//     backward builds one set for d_feats and d_w together.
 //   - A CTA owns (offset k, a range of k's pairs, a 32*wm block of Cin, a
 //     32*wn block of Cout), the grid sized from V and the shapes alone;
 //     CTAs past the offset's count exit at once. It is weight-stationary:
@@ -425,13 +429,15 @@ subm_conv_dw_pairs_count(const int* __restrict__ ranks,
 }
 
 // pairs[k][p] = (input row, cotangent row) of offset k's p-th pair in
-// voxel order; the last block writes counts[k].
+// voxel order; the last block writes counts[k]. With span > 0 (a multiple
+// of 32), starts[s][k] = the pairs of offset k among voxels below s * span,
+// for s = 0 .. ceil(V / span) (the last row: counts[k]).
 __global__ void __launch_bounds__(kPairThreads)
 subm_conv_dw_pairs_write(const int* __restrict__ ranks,
                          const int* __restrict__ sel,
                          const int* __restrict__ block_counts,
                          int2* __restrict__ pairs, int* __restrict__ counts,
-                         int V) {
+                         int* __restrict__ starts, int V, int span) {
   constexpr int kW = kPairThreads / 32;
   __shared__ int base_s[kOffsets];       // offset k's next free slot
   __shared__ int warp_s[kW][kOffsets];   // per warp: count, then its slot
@@ -453,8 +459,14 @@ subm_conv_dw_pairs_write(const int* __restrict__ ranks,
       s += __shfl_down_sync(0xffffffffu, s, d, 8);
     if (k < kOffsets && (tid & 7) == 0) {
       base_s[k] = s;
-      if (b == gridDim.x - 1)
-        counts[k] = s + block_counts[static_cast<size_t>(b) * kOffsets + k];
+      if (b == gridDim.x - 1) {
+        const int total =
+            s + block_counts[static_cast<size_t>(b) * kOffsets + k];
+        counts[k] = total;
+        if (span > 0)
+          starts[static_cast<size_t>((V + span - 1) / span) * kOffsets + k] =
+              total;
+      }
     }
   }
   __syncthreads();
@@ -489,6 +501,14 @@ subm_conv_dw_pairs_write(const int* __restrict__ ranks,
       base_s[tid] = s;
     }
     __syncthreads();
+    // a span begins at some warp's first voxel: that warp's first slot at
+    // k counts the pairs of k below it
+    if (span > 0 && tid < kW * kOffsets) {
+      const long long vw = base + 32 * (tid / kOffsets);
+      if (vw < v1 && vw % span == 0)
+        starts[(vw / span) * kOffsets + tid % kOffsets] =
+            warp_s[tid / kOffsets][tid % kOffsets];
+    }
 #pragma unroll
     for (int k = 0; k < kOffsets; ++k)
       if (rows[k] >= 0)
@@ -753,16 +773,20 @@ int reduce(const float* partial, float* dw, int ranges, int cin, int cout,
 
 }  // namespace
 
-// The float32 route's pair lists. ranks and sel int32 (V*9); block_counts
-// an int32 (ceil(V / 2048), 27) scratch; pairs (27, V) int2 and counts
-// (27,) int32 out: pairs[k][0 .. counts[k]) are offset k's (input row,
-// cotangent row) pairs, ascending by input row; the rest is not written.
+// The float32 route's pair lists, shared by K1, K2 d_feats and d_w. ranks
+// and sel int32 (V*9); block_counts an int32 (ceil(V / 2048), 27) scratch;
+// pairs (27, V) int2 and counts (27,) int32 out: pairs[k][0 .. counts[k])
+// are offset k's (voxel, neighbour row) pairs, ascending by voxel; the rest
+// is not written. span 0, or a multiple of 32 for the conv kernels' table:
+// starts (ceil(V / span) + 1, 27) int32 out (subm_conv_dw_pairs_write).
 // Launches both kernels on `stream` and returns cudaGetLastError().
-extern "C" int mopa_subm_conv_dw_pairs(const void* ranks, const void* sel,
-                                       void* block_counts, void* pairs,
-                                       void* counts, int V, void* stream) {
+extern "C" int mopa_subm_conv_pairs(const void* ranks, const void* sel,
+                                    void* block_counts, void* pairs,
+                                    void* counts, void* starts, int V,
+                                    int span, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (V < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (V < 0 || span < 0 || span % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (V == 0)
     return static_cast<int>(cudaMemsetAsync(counts, 0, kOffsets * 4, st));
   const int* r = static_cast<const int*>(ranks);
@@ -773,12 +797,13 @@ extern "C" int mopa_subm_conv_dw_pairs(const void* ranks, const void* sel,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   subm_conv_dw_pairs_write<<<blocks, kPairThreads, 0, st>>>(
-      r, s, bc, static_cast<int2*>(pairs), static_cast<int*>(counts), V);
+      r, s, bc, static_cast<int2*>(pairs), static_cast<int*>(counts),
+      static_cast<int*>(starts), V, span);
   return static_cast<int>(cudaGetLastError());
 }
 
 // float32 route (3xTF32 tensor cores) over the pair lists of
-// mopa_subm_conv_dw_pairs. feats (V, cin) and g (V, cout) float32,
+// mopa_subm_conv_pairs. feats (V, cin) and g (V, cout) float32,
 // contiguous; offset k's pairs split into ranges of range_rows, at most
 // `ranges` of them (ranges * range_rows >= V); wm and wn (1 to 4) warps of
 // 32 channels along Cin and Cout, the CTA tile (32*wm) x (32*wn); partial

@@ -12,7 +12,8 @@
 //   C (16 x 8, f32):        c0, c1 = C[g][2q..2q+1], c2, c3 = C[g+8][2q..]
 // ldmatrix .x4 loads four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row
 // addresses of matrix i, and lane receives element (lane / 4, 2 (lane % 4))
-// of each (with .trans: of its transpose).
+// of each (with .trans: of its transpose); .x2 loads two, from the
+// addresses of lanes 0..15.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), one 32-bit element each:
 //   A (16 x 8, row-major):  a0 = A[g][q], a1 = A[g+8][q], a2 = A[g][q+4],
@@ -63,6 +64,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(addr));
 }
 

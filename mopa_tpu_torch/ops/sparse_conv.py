@@ -327,22 +327,18 @@ def _conv_fwd(feats, ranks, sel, weight):
     return submanifold_conv_wide_ref(feats, ranks, sel, weight)
 
 
-def _conv_bwd_dfeats(g, ranks, sel, weight):
+def _conv_bwd(g, feats, ranks, sel, weight, need_dfeats, need_dw):
+    """(d_feats or None, d_w or None): K2 on CUDA tensors (one set of pair
+    lists for both on the float32 route), the plain twins on the CPU."""
     if g.is_cuda:
         from mopa_tpu_torch.ops import sparse_conv_cuda
 
-        return sparse_conv_cuda.submanifold_conv_wide_bwd_dfeats_cuda(
-            g, ranks, sel, weight)
-    return submanifold_conv_wide_dfeats_ref(g, ranks, sel, weight)
-
-
-def _conv_bwd_dw(g, feats, ranks, sel):
-    if g.is_cuda:
-        from mopa_tpu_torch.ops import sparse_conv_cuda
-
-        return sparse_conv_cuda.submanifold_conv_wide_bwd_dw_cuda(
-            g, feats, ranks, sel)
-    return submanifold_conv_wide_dw_ref(g, feats, ranks, sel)
+        return sparse_conv_cuda.submanifold_conv_wide_bwd_cuda(
+            g, feats, ranks, sel, weight, need_dfeats, need_dw)
+    return (submanifold_conv_wide_dfeats_ref(g, ranks, sel, weight)
+            if need_dfeats else None,
+            submanifold_conv_wide_dw_ref(g, feats, ranks, sel)
+            if need_dw else None)
 
 
 class _SubmanifoldConvWide(torch.autograd.Function):
@@ -362,11 +358,12 @@ class _SubmanifoldConvWide(torch.autograd.Function):
     def backward(ctx, g):
         feats, w, ranks, sel = ctx.saved_tensors
         g = g.to(feats.dtype).contiguous()
-        d_feats = d_w = None
-        if ctx.needs_input_grad[0]:  # not for the stem's all-ones input
-            d_feats = _conv_bwd_dfeats(g, ranks, sel, w)
-        if ctx.needs_input_grad[1]:
-            d_w = _conv_bwd_dw(g, feats, ranks, sel).to(ctx.weight_dtype)
+        # no d_feats for the stem's all-ones input
+        d_feats, d_w = _conv_bwd(g, feats, ranks, sel, w,
+                                 ctx.needs_input_grad[0],
+                                 ctx.needs_input_grad[1])
+        if d_w is not None:
+            d_w = d_w.to(ctx.weight_dtype)
         return d_feats, d_w, None, None
 
 

@@ -19,15 +19,17 @@ Each has two routes, chosen by the dtype (:func:`route_for`):
   run and SPVCNN's decoder use (float32 under a bfloat16 compute dtype, as
   in the JAX package): TF32 ``mma.sync`` in 3xTF32 (each operand split
   into a TF32 high and low part, three products summed), so float32 stays
-  within 1e-4 of the plain twins (TF32 alone would not). K1 and
-  ``d_feats`` run the same gather and take the forward weight in place
-  too; the library first packs it into a scratch, transposed (``ldmatrix``
-  cannot transpose 32-bit elements) and already split
-  (:func:`pack_weight_3xtf32` is that pack in PyTorch). ``d_w`` runs over
-  the neighbour pairs that exist, offset by offset: the library first
-  lists them on the device (:func:`dw_pair_lists` is that list in
-  PyTorch), once per call, then each column block is a GEMM over each
-  offset's list.
+  within 1e-4 of the plain twins (TF32 alone would not). All three run
+  over the neighbour pairs that exist, offset by offset: the library
+  first lists them on the device (:func:`pair_lists` is that list in
+  PyTorch, :func:`span_starts` the table of where each span of
+  :data:`PAIR_SPAN` output voxels begins in each list), once per conv
+  call and once per backward for ``d_feats`` and ``d_w`` together. K1 and
+  ``d_feats`` gather each span's pairs offset by offset and add the
+  products into the span's rows; the library first packs the weight into a
+  scratch, transposed (``ldmatrix`` cannot transpose 32-bit elements) and
+  already split (:func:`pair_pack_3xtf32` is that pack in PyTorch). Each
+  column block of ``d_w`` is a GEMM over each offset's list.
 
 The sources are ``mopa_tpu_torch/csrc/submanifold_conv.cu`` (K1, K2
 ``d_feats``) and ``csrc/submanifold_conv_dw.cu`` (K2 ``d_w``), with the
@@ -94,9 +96,12 @@ NT_CHOICES = (1, 2, 3, 4, 6, 8, 12)
 # float32 route: each offset's pairs into ranges of as many pairs).
 ROWS_PER_RANGE = 2048
 MAX_RANGES = 128
-# voxels per block of the float32 d_w's pair-list kernels (csrc
+# voxels per block of the float32 route's pair-list kernels (csrc
 # kPairVoxels)
 PAIR_VOXELS = 2048
+# output voxels per CTA of the float32 K1 / d_feats kernel (csrc kSpan): its
+# span table has a row per span
+PAIR_SPAN = 128
 
 # Launch count of every kernel of the port; only the kernels' wrappers (below
 # and in ops/gather.py) add to it, once per launch, so a caller can show
@@ -105,13 +110,15 @@ PAIR_VOXELS = 2048
 launches = {K1: 0, K2_DFEATS: 0, K2_DW: 0, P1: 0, P2: 0}
 routes = {name: {TENSOR_CORE: 0, TF32X3: 0}
           for name in (K1, K2_DFEATS, K2_DW)}
-# The float32 ``d_w``'s pair route: pair lists built (not K1 / K2
-# launches) and its GEMM launches (each also one K2_DW launch above).
-dw_pair_route = {"lists": 0, "launches": 0}
+# The float32 route over the pairs that exist: pair lists built (not K1 /
+# K2 launches), and launches on the lists by kernel (each also one launch
+# above).
+pair_route = {"lists": 0, "k1": 0, "dfeats": 0, "dw": 0}
+_PAIR_KEY = {K1: "k1", K2_DFEATS: "dfeats", K2_DW: "dw"}
 # the record of ``common.spans`` copies the counts at each step's start and
 # end
 spans.counter("launches", launches)
-spans.counter("dw_pair_route", dw_pair_route)
+spans.counter("pair_route", pair_route)
 
 _libs: dict | None = None
 
@@ -122,8 +129,8 @@ def reset_launch_counts() -> None:
     for counts in routes.values():
         for route in counts:
             counts[route] = 0
-    for name in dw_pair_route:
-        dw_pair_route[name] = 0
+    for name in pair_route:
+        pair_route[name] = 0
 
 
 def _nvcc() -> str:
@@ -184,7 +191,7 @@ def build() -> dict:
             (libs["conv"].mopa_subm_conv_tc, [ptr] * 5 + [cint] * 6),
             (libs["dw"].mopa_subm_conv_dw_f32, [ptr] * 6 + [cint] * 7),
             (libs["dw"].mopa_subm_conv_dw_tc, [ptr] * 6 + [cint] * 7),
-            (libs["dw"].mopa_subm_conv_dw_pairs, [ptr] * 5 + [cint]),
+            (libs["dw"].mopa_subm_conv_pairs, [ptr] * 6 + [cint] * 2),
             (libs["gather"].mopa_row_gather, [ptr] * 3 + [cint] * 4),
             (libs["gather"].mopa_gather_gemm, [ptr] * 4 + [cint] * 5)):
         fn.argtypes = args + [ptr]  # the stream last
@@ -212,10 +219,10 @@ def _nt(blocks16: int) -> int:
 
 
 def conv_tile_shape(cin: int, cout: int) -> tuple[int, int]:
-    """(KP, NP) of the tensor-core conv kernels (both routes) for Cin ->
-    Cout: a column's K = 3*Cin rounded up to :data:`K_STAGE` (the kernel
-    stages zeros past 3*Cin), and Cout rounded up to 16 * an instantiated
-    block count (the kernel's register tile)."""
+    """(KP, NP) of the tensor-core conv kernels for Cin -> Cout: a column's
+    K = 3*Cin rounded up to :data:`K_STAGE` (the bfloat16 kernel stages
+    zeros past 3*Cin), and Cout rounded up to 16 * an instantiated block
+    count (the register tile; the float32 kernel takes NP alone)."""
     return _cdiv(3 * cin, K_STAGE) * K_STAGE, 16 * _nt(_cdiv(cout, 16))
 
 
@@ -227,43 +234,27 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def pack_weight_3xtf32(weight: torch.Tensor, mirror: bool, kp: int,
-                       np_: int) -> torch.Tensor:
-    """What the float32 conv launch's first kernel (``subm_conv_f32_pack``)
-    writes into its scratch, in PyTorch: (9, 2, NP, KP) float32,
-    ``pack[c][0][n][k] + pack[c][1][n][k]`` column c's B[k][n] split into
+def pair_pack_3xtf32(weight: torch.Tensor, mirror: bool,
+                     np_: int) -> torch.Tensor:
+    """What the float32 conv launch's first kernel
+    (``subm_conv_pairs_f32_pack``) writes into its scratch, in PyTorch:
+    (27, 2, NP, KPC) float32, KPC = Cin rounded up to :data:`K_STAGE`;
+    ``pack[k][0][n][kk] + pack[k][1][n][kk]`` list k's B[kk][n] split into
     its TF32 high part ``tf32_round(b)`` and low part
-    ``tf32_round(b - high)``, zero past 3*Cin rows and Cout columns.
+    ``tf32_round(b - high)``, zero past Cin rows and the width's columns.
 
     B is transposed (n-major) so that the kernel's ``ldmatrix`` reads its
-    fragments without a transpose. Forward (K1; ``weight`` (27, Cin, Cout)):
-    B[t*Cin + ci][n] = weight[3c + t][ci][n]. Mirror (``d_feats``; the
-    forward weight (27, Cout, Cin) of this launch's Cin -> Cout):
-    B[t*Cin + ci][n] = weight[26 - 3c - t][n][ci]."""
-    w = weight.flip(0) if mirror else weight.transpose(1, 2)
-    _, cout, cin = w.shape  # (27, N, Cin): w[3c + t][n][ci] = B_c
-    bt = w.reshape(9, 3, cout, cin).transpose(1, 2).reshape(9, cout, 3 * cin)
-    pack = weight.new_zeros((9, 2, np_, kp))
+    fragments without a transpose. Forward (K1; ``weight`` (27, Cin,
+    width)): B = weight[26 - k]. Mirror (``d_feats``; the forward weight's
+    (27, width, Cin) block of this launch's Cin -> width): B[kk][n] =
+    weight[k][n][kk]."""
+    bt = weight if mirror else weight.flip(0).transpose(1, 2)
+    _, width, cin = bt.shape  # bt[k][n][kk] = B_k[kk][n]
+    pack = weight.new_zeros((27, 2, np_, _cdiv(cin, K_STAGE) * K_STAGE))
     hi = tf32_round(bt)
-    pack[:, 0, :cout, :3 * cin] = hi
-    pack[:, 1, :cout, :3 * cin] = tf32_round(bt - hi)
+    pack[:, 0, :width, :cin] = hi
+    pack[:, 1, :width, :cin] = tf32_round(bt - hi)
     return pack
-
-
-def tile_columns(ranks: torch.Tensor, sel: torch.Tensor,
-                 v: int) -> torch.Tensor:
-    """(ceil(V / TILE_M), 9) bool: the columns the tensor-core conv kernel
-    stages for each tile of :data:`TILE_M` voxels, i.e. those in which some
-    voxel of the tile has a row in [0, V) with a dz code < 3 (the kernel
-    finds them itself; this is their count on the host)."""
-    r = ranks.reshape(v, 9).long()
-    codes = sel.reshape(v, 9)
-    has = torch.zeros((v, 9), dtype=torch.bool, device=ranks.device)
-    for j in range(3):
-        has |= (((codes >> (2 * j)) & 3) != 3) & (r + j >= 0) & (r + j < v)
-    n = _cdiv(v, TILE_M)
-    has = torch.cat([has, has.new_zeros((n * TILE_M - v, 9))])
-    return has.reshape(n, TILE_M, 9).any(dim=1)
 
 
 def column_blocks(width: int) -> list[tuple[int, int]]:
@@ -309,16 +300,17 @@ def dw_pair_tiling(cin: int, cout: int) -> tuple[int, int]:
     return _warps32(cin), _warps32(cout)
 
 
-def dw_pair_lists(ranks: torch.Tensor, sel: torch.Tensor,
-                  v: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of the float32 ``d_w``'s pair lists
+def pair_lists(ranks: torch.Tensor, sel: torch.Tensor,
+               v: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the float32 route's pair lists
     (``subm_conv_dw_pairs_count`` / ``_write``): (pairs (27, V, 2) int32,
-    counts (27,) int32). ``pairs[k, :counts[k]]`` are the (input row,
-    cotangent row) pairs of kernel offset k, ascending by input row: voxel
-    v and the row of its column c in dz slot t, k = 26 - (3c + t) (the
-    mirror form of ``d_w``), rows resolved as the kernels resolve them
-    (outside [0, V) never). Past a count the twin holds -1; the kernel
-    leaves those entries unwritten."""
+    counts (27,) int32). ``pairs[k, :counts[k]]`` are the (voxel, neighbour
+    row) pairs of list k, ascending by voxel: voxel v and the row of its
+    column c in dz slot t, k = 26 - (3c + t), rows resolved as the kernels
+    resolve them (outside [0, V) never). ``d_w[k]`` sums feats[voxel]^T
+    (x) g[row] over list k (the mirror form); K1 adds feats[row] @
+    W[26 - k] into out[voxel], ``d_feats`` g[row] @ W[k]^T. Past a count
+    the twin holds -1; the kernel leaves those entries unwritten."""
     r = ranks.reshape(v, 9).long()
     codes = sel.reshape(v, 9).long()
     src = torch.full((27, v), -1, dtype=torch.long, device=ranks.device)
@@ -339,6 +331,23 @@ def dw_pair_lists(ranks: torch.Tensor, sel: torch.Tensor,
         pairs[k, :len(rows), 1] = src[k, rows].int()
         counts[k] = len(rows)
     return pairs, counts
+
+
+def span_starts(pairs: torch.Tensor, counts: torch.Tensor, v: int,
+                span: int = PAIR_SPAN) -> torch.Tensor:
+    """Plain twin of the span table ``subm_conv_dw_pairs_write`` writes
+    beside the lists: (ceil(V / span) + 1, 27) int32, ``starts[s][k]`` the
+    pairs of list k whose voxel lies below ``s * span`` (the last row: the
+    counts), so span s's pairs of offset k are list k's entries
+    ``[starts[s][k], starts[s + 1][k])``."""
+    n = _cdiv(v, span)
+    bounds = torch.arange(n + 1, dtype=torch.int32,
+                          device=pairs.device) * span
+    starts = torch.empty((n + 1, 27), dtype=torch.int32, device=pairs.device)
+    for k in range(27):
+        vox = pairs[k, :int(counts[k]), 0].contiguous()
+        starts[:, k] = torch.searchsorted(vox, bounds).int()
+    return starts
 
 
 def _check_plan(ranks: torch.Tensor, sel: torch.Tensor, v: int,
@@ -402,8 +411,9 @@ def _launch(kernel: str, route: str, fn, device, *args) -> None:
 
 def _conv_block(kernel: str, rows: torch.Tensor, ranks: torch.Tensor,
                 sel: torch.Tensor, weight: torch.Tensor, out: torch.Tensor,
-                mirror: bool) -> None:
-    """One launch of the conv kernel writing all of ``out`` (V, width)."""
+                mirror: bool, lists) -> None:
+    """One launch of the conv kernel writing all of ``out`` (V, width);
+    ``lists`` the float32 route's (pairs, counts, starts)."""
     v, cin = rows.shape
     width = out.shape[1]
     route = route_for(rows.dtype)
@@ -413,29 +423,36 @@ def _conv_block(kernel: str, rows: torch.Tensor, ranks: torch.Tensor,
         _launch(kernel, route, lib.mopa_subm_conv_tc, rows.device, rows,
                 ranks, sel, weight, out, v, cin, width, int(mirror), kp, np_)
     else:
+        pairs, _, starts = lists
         # the weight's split pack, written by the launch's first kernel
-        pack = torch.empty((9, 2, np_, kp), dtype=torch.float32,
-                           device=rows.device)
+        pack = torch.empty((27, 2, np_, _cdiv(cin, K_STAGE) * K_STAGE),
+                           dtype=torch.float32, device=rows.device)
         _launch(kernel, route, lib.mopa_subm_conv_f32, rows.device, rows,
-                ranks, sel, weight, pack, out, v, cin, width, int(mirror),
-                kp, np_)
+                pairs, starts, weight, pack, out, v, cin, width, int(mirror),
+                np_, PAIR_SPAN)
+        pair_route[_PAIR_KEY[kernel]] += 1
 
 
 def _conv(kernel: str, rows: torch.Tensor, ranks: torch.Tensor,
           sel: torch.Tensor, weight: torch.Tensor, out_width: int,
-          mirror: bool) -> torch.Tensor:
+          mirror: bool, lists=None) -> torch.Tensor:
     """K1 (mirror False, weight (27, Cin, Cout)) or K2 ``d_feats`` (mirror
     True, the forward weight (27, Cout_in, Cin_in) read as W') on ``rows``
     (V, Cin) -> (V, out_width): one launch per :func:`column_blocks` block
     on the block's columns of the weight (the weight itself when there is
-    one block: a full-width slice is contiguous, so nothing is copied)."""
+    one block: a full-width slice is contiguous, so nothing is copied). On
+    the float32 route the blocks share one set of pair lists (``lists``,
+    else built here)."""
     v = rows.shape[0]
+    if v and lists is None and route_for(rows.dtype) == TF32X3:
+        lists = _pair_lists_cuda(ranks, sel, v, PAIR_SPAN)
     outs = []
     for c0, c1 in column_blocks(out_width):
         w = weight[:, c0:c1] if mirror else weight[:, :, c0:c1]
         out = torch.empty((v, c1 - c0), dtype=rows.dtype, device=rows.device)
         if v:
-            _conv_block(kernel, rows, ranks, sel, w.contiguous(), out, mirror)
+            _conv_block(kernel, rows, ranks, sel, w.contiguous(), out, mirror,
+                        lists)
         outs.append(out)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
@@ -463,15 +480,9 @@ def submanifold_conv_wide_cuda(feats: torch.Tensor, ranks: torch.Tensor,
     return _conv(K1, feats, ranks, sel, weight, cout, mirror=False)
 
 
-def submanifold_conv_wide_bwd_dfeats_cuda(g: torch.Tensor,
-                                          ranks: torch.Tensor,
-                                          sel: torch.Tensor,
-                                          weight: torch.Tensor
-                                          ) -> torch.Tensor:
-    """K2's ``d_feats``: the windowed conv of the cotangent ``g`` (V, Cout)
-    with ``weight[::-1].transpose(1, 2)``, from the FORWARD weight (27, Cin,
-    Cout) (any Cin >= 1, :func:`column_blocks`), in the cotangent's dtype. Returns (V, Cin) in that
-    dtype, accumulated in float32."""
+def _check_dfeats(g: torch.Tensor, ranks: torch.Tensor, sel: torch.Tensor,
+                  weight: torch.Tensor) -> int:
+    """Check K2 ``d_feats``' arguments; returns its output width Cin."""
     _check_rows(g, "K2 d_feats")
     v, cout = g.shape
     if weight.dim() != 3 or weight.shape[0] != 27 or weight.shape[2] != cout:
@@ -482,20 +493,11 @@ def submanifold_conv_wide_bwd_dfeats_cuda(g: torch.Tensor,
         raise ValueError("K2 d_feats needs Cin >= 1, got {}".format(cin))
     _check_weight(weight, cin, cout, g)
     _check_plan(ranks, sel, v, g.device)
-    return _conv(K2_DFEATS, g, ranks, sel, weight, cin, mirror=True)
+    return cin
 
 
-def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
-                                      ranks: torch.Tensor,
-                                      sel: torch.Tensor) -> torch.Tensor:
-    """K2's ``d_w`` (27, Cin, Cout) float32 from the cotangent ``g`` (V, Cout)
-    and the forward input ``feats`` (V, Cin), both in one dtype (float32 or
-    bfloat16) on a CUDA device, any Cout >= 1. Reduced without atomics over
-    ranges of :func:`dw_ranges` (bfloat16: of voxels; float32: of each
-    offset's pairs, listed once per call by :func:`_dw_pair_lists_cuda`):
-    the same inputs give the same bits. One launch per
-    :func:`column_blocks` block of Cout, on the block's cotangent columns
-    (``g`` itself when there is one block)."""
+def _check_dw(g: torch.Tensor, feats: torch.Tensor, ranks: torch.Tensor,
+              sel: torch.Tensor) -> None:
     _check_rows(g, "K2 d_w")
     _check_rows(feats, "K2 d_w")
     v, cout = g.shape
@@ -506,12 +508,73 @@ def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
     if cout < 1:
         raise ValueError("K2 d_w needs Cout >= 1, got {}".format(cout))
     _check_plan(ranks, sel, v, g.device)
+
+
+def submanifold_conv_wide_bwd_dfeats_cuda(g: torch.Tensor,
+                                          ranks: torch.Tensor,
+                                          sel: torch.Tensor,
+                                          weight: torch.Tensor
+                                          ) -> torch.Tensor:
+    """K2's ``d_feats``: the windowed conv of the cotangent ``g`` (V, Cout)
+    with ``weight[::-1].transpose(1, 2)``, from the FORWARD weight (27, Cin,
+    Cout) (any Cin >= 1, :func:`column_blocks`), in the cotangent's dtype. Returns (V, Cin) in that
+    dtype, accumulated in float32."""
+    cin = _check_dfeats(g, ranks, sel, weight)
+    return _conv(K2_DFEATS, g, ranks, sel, weight, cin, mirror=True)
+
+
+def submanifold_conv_wide_bwd_dw_cuda(g: torch.Tensor, feats: torch.Tensor,
+                                      ranks: torch.Tensor,
+                                      sel: torch.Tensor) -> torch.Tensor:
+    """K2's ``d_w`` (27, Cin, Cout) float32 from the cotangent ``g`` (V, Cout)
+    and the forward input ``feats`` (V, Cin), both in one dtype (float32 or
+    bfloat16) on a CUDA device, any Cout >= 1. Reduced without atomics over
+    ranges of :func:`dw_ranges` (bfloat16: of voxels; float32: of each
+    offset's pairs, listed once per call by :func:`_pair_lists_cuda`):
+    the same inputs give the same bits. One launch per
+    :func:`column_blocks` block of Cout, on the block's cotangent columns
+    (``g`` itself when there is one block)."""
+    _check_dw(g, feats, ranks, sel)
+    return _dw(g, feats, ranks, sel, None)
+
+
+def submanifold_conv_wide_bwd_cuda(g: torch.Tensor, feats: torch.Tensor,
+                                   ranks: torch.Tensor, sel: torch.Tensor,
+                                   weight: torch.Tensor,
+                                   need_dfeats: bool = True,
+                                   need_dw: bool = True) -> tuple:
+    """K2 whole: (``d_feats`` or None, ``d_w`` or None), as
+    :func:`submanifold_conv_wide_bwd_dfeats_cuda` and
+    :func:`submanifold_conv_wide_bwd_dw_cuda` give them. On the float32
+    route the two share one set of pair lists, built once here."""
+    if need_dfeats:
+        cin = _check_dfeats(g, ranks, sel, weight)
+    if need_dw:
+        _check_dw(g, feats, ranks, sel)
+    lists = None
+    if (need_dfeats or need_dw) and route_for(g.dtype) == TF32X3:
+        lists = _pair_lists_cuda(ranks, sel, g.shape[0],
+                                 PAIR_SPAN if need_dfeats else 0)
+    d_feats = d_w = None
+    if need_dfeats:
+        d_feats = _conv(K2_DFEATS, g, ranks, sel, weight, cin, True, lists)
+    if need_dw:
+        d_w = _dw(g, feats, ranks, sel, lists)
+    return d_feats, d_w
+
+
+def _dw(g: torch.Tensor, feats: torch.Tensor, ranks: torch.Tensor,
+        sel: torch.Tensor, lists) -> torch.Tensor:
+    """``d_w``'s launches, one per :func:`column_blocks` block of Cout; on
+    the float32 route over ``lists`` (else built here)."""
+    v, cout = g.shape
     blocks = [g[:, c0:c1].contiguous() for c0, c1 in column_blocks(cout)]
     if route_for(g.dtype) == TENSOR_CORE:
         outs = [_dw_block(gb, feats, ranks, sel) for gb in blocks]
     else:
-        pairs, counts = _dw_pair_lists_cuda(ranks, sel, v)
-        outs = [_dw_pairs_block(gb, feats, pairs, counts) for gb in blocks]
+        if lists is None:
+            lists = _pair_lists_cuda(ranks, sel, v)
+        outs = [_dw_pairs_block(gb, feats, *lists[:2]) for gb in blocks]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
@@ -532,22 +595,25 @@ def _dw_block(g: torch.Tensor, feats: torch.Tensor, ranks: torch.Tensor,
     return out
 
 
-def _dw_pair_lists_cuda(ranks: torch.Tensor, sel: torch.Tensor,
-                        v: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The float32 ``d_w``'s pair lists on the device (what
-    :func:`dw_pair_lists` computes, the entries past each count left
-    unwritten): (pairs (27, V, 2) int32, counts (27,) int32), 27 * V * 8
-    bytes alive for the call. Counted in ``dw_pair_route["lists"]``, not
-    as a K1 / K2 launch."""
+def _pair_lists_cuda(ranks: torch.Tensor, sel: torch.Tensor, v: int,
+                     span: int = 0) -> tuple:
+    """The float32 route's pair lists on the device (what :func:`pair_lists`
+    and, with ``span``, :func:`span_starts` compute, the list entries past
+    each count left unwritten): (pairs (27, V, 2) int32, counts (27,) int32,
+    starts (ceil(V / span) + 1, 27) int32 or None), 27 * V * 8 bytes alive
+    for the call. Counted in ``pair_route["lists"]``, not as a K1 / K2
+    launch."""
     dev = ranks.device
     pairs = torch.empty((27, v, 2), dtype=torch.int32, device=dev)
     counts = torch.empty(27, dtype=torch.int32, device=dev)
     block_counts = torch.empty((_cdiv(v, PAIR_VOXELS), 27),
                                dtype=torch.int32, device=dev)
-    _call("K2 d_w pair lists", build()["dw"].mopa_subm_conv_dw_pairs, dev,
-          ranks, sel, block_counts, pairs, counts, v)
-    dw_pair_route["lists"] += 1
-    return pairs, counts
+    starts = torch.empty((_cdiv(v, span) + 1, 27), dtype=torch.int32,
+                         device=dev) if span else None
+    _call("pair lists", build()["dw"].mopa_subm_conv_pairs, dev, ranks, sel,
+          block_counts, pairs, counts, starts, v, span)
+    pair_route["lists"] += 1
+    return pairs, counts, starts
 
 
 def _dw_pairs_block(g: torch.Tensor, feats: torch.Tensor,
@@ -566,5 +632,5 @@ def _dw_pairs_block(g: torch.Tensor, feats: torch.Tensor,
     _launch(K2_DW, TF32X3, build()["dw"].mopa_subm_conv_dw_f32, g.device,
             feats, g, pairs, counts, partial, out, v, cin, cout, ranges,
             rows, *dw_pair_tiling(cin, cout))
-    dw_pair_route["launches"] += 1
+    pair_route["dw"] += 1
     return out

@@ -1,37 +1,39 @@
 """The float32 route of K1 / K2 (``cuda-3xtf32``) on the CPU: its arithmetic
 and its layouts against the JAX reference.
 
-The route's kernels (``subm_conv_f32_tc_kernel`` in
+The route's kernels (``subm_conv_pairs_f32_tc_kernel`` in
 ``csrc/submanifold_conv.cu``; ``subm_conv_dw_pairs_count`` / ``_write``
 and ``subm_conv_dw_pairs_f32_tc_kernel`` in ``csrc/submanifold_conv_dw.cu``)
-run only on the card. They compute each float32 product as 3xTF32: both
-operands split into a TF32 high part ``rna(x)`` and a low part
+run only on the card. All three work over the neighbour pairs that exist,
+listed per kernel offset. They compute each float32 product as 3xTF32:
+both operands split into a TF32 high part ``rna(x)`` and a low part
 ``rna(x - high)`` (round to nearest, ties away, as ``cvt.rna.tf32.f32``),
 and lo*hi + hi*lo + hi*hi accumulated in float32 by ``mma.sync`` m16n8k8,
-8 K rows at a time, into partial sums from zero that a float32 add joins
-to the accumulator (K1: one a 32-row stage; ``d_w``: one an MMA). Held
-here:
+8 K rows at a time, each MMA's products summed from zero and joined to the
+accumulator by a float32 add. Held here:
 
 * ``sparse_conv_cuda.tf32_round`` against a float64 rounding written from
   the definition, ties and carries included;
-* the weight pack (9, 2, NP, KP) that the float32 conv launch writes first
-  (``sparse_conv_cuda.pack_weight_3xtf32``): high + low equal to the weight
-  within one float32 unit, transposed from the ``w2d`` / ``wt2d`` blocks the
-  Pallas calls receive (``test_torch_conv_tc_layout._weight_block``), zero
-  past 3*Cin and Cout;
-* the plain twin of ``d_w``'s pair lists (``sparse_conv_cuda.
-  dw_pair_lists``): every offset's pairs exactly those the plain twin
+* the weight pack (27, 2, NP, KPC) that the float32 conv launch writes
+  first (``sparse_conv_cuda.pair_pack_3xtf32``): per list, high + low
+  equal to the weight within one float32 unit, transposed from the rows
+  of the window blocks (``test_torch_conv_tc_layout._weight_block``, held
+  there to the ``w2d`` / ``wt2d`` the Pallas calls receive), zero past
+  Cin and Cout;
+* the plain twin of the pair lists (``sparse_conv_cuda.pair_lists``):
+  every offset's pairs exactly those the plain twin
   ``submanifold_conv_wide_dw_ref`` reads from the plan, ascending, with
   their counts; empty lists for offsets without pairs; no pair in an
-  all-miss padding tile;
-* a torch emulation of the kernels' sums over those packs and lists (K1,
-  ``d_feats`` on the mirror pack, ``d_w`` over each offset's pair ranges
-  of ``dw_ranges``' length and its fixed reduction order) against JAX's
-  ``submanifold_conv_wide`` and ``jax.vjp`` to 1e-4 of the largest
-  |value|, the limit chip_smoke holds the card to, at the SCN UNet's 14
-  conv shapes and, through the wrappers with the launches stubbed by the
-  emulation and the lists by the twin, at SPVCNN's 384 -> 256 (column
-  blocks).
+  all-miss padding tile; and of the span table
+  (``sparse_conv_cuda.span_starts``) against a loop over the lists;
+* a torch emulation of the kernels' sums from their launch arguments (K1
+  and ``d_feats`` over each span's pairs of each offset, in offset order;
+  ``d_w`` over each offset's pair ranges of ``dw_ranges``' length and its
+  fixed reduction order) against JAX's ``submanifold_conv_wide`` and
+  ``jax.vjp`` to 1e-4 of the largest |value|, the limit chip_smoke holds
+  the card to, at the SCN UNet's 14 conv shapes and, through the wrappers
+  with the launches stubbed by the emulation and the lists by the twin,
+  at SPVCNN's 384 -> 256 (column blocks).
 """
 
 import contextlib
@@ -83,30 +85,37 @@ def _partial_3xtf32(acc, a_hi, a_lo, b_hi, b_lo) -> None:
     acc += part
 
 
-def emulate_conv_3xtf32(rows: torch.Tensor, ranks: torch.Tensor,
-                        sel: torch.Tensor, pack: torch.Tensor,
-                        cout: int) -> torch.Tensor:
-    """What the float32 conv kernel computes from its launch arguments:
-    per column c, the dz-aligned window (V, KP) of ``rows`` (slot t = k //
-    Cin of K row k, zero past 3*Cin and where the slot is empty), split into
-    TF32 parts, times the pack's high and low blocks, a partial sum per
-    ``K_STAGE``-row stage. Returns (V, cout) float32."""
+def emulate_conv_3xtf32(rows: torch.Tensor, pairs: torch.Tensor,
+                        starts: torch.Tensor, pack: torch.Tensor,
+                        width: int) -> torch.Tensor:
+    """What the float32 conv kernel computes from its launch arguments: per
+    span s of ``PAIR_SPAN`` output voxels and list k (its entries
+    ``[starts[s][k], starts[s + 1][k])``), in the order of k, the gathered
+    rows of the pairs, split into TF32 parts, times the pack's high and low
+    blocks of list k, in 8-row MMA steps, each step's products from zero
+    added to the offset's sums, which are then added into the pairs' output
+    rows. Returns (V, width) float32."""
     v, cin = rows.shape
-    kp = pack.shape[3]
-    src = torch.from_numpy(_slot_rows_of(ranks, sel, v))
-    acc = torch.zeros((v, pack.shape[2]), dtype=torch.float32)
-    for c in range(9):
-        a = torch.zeros((v, kp), dtype=torch.float32)
-        for t in range(3):
-            r = src[3 * c + t]
-            ok = r >= 0
-            a[ok, t * cin:(t + 1) * cin] = rows[r[ok]]
-        a_hi, a_lo = _split(a)
-        b_hi, b_lo = pack[c, 0].T, pack[c, 1].T
-        for k0 in range(0, kp, scc.K_STAGE):
-            k = slice(k0, k0 + scc.K_STAGE)
-            _partial_3xtf32(acc, a_hi[:, k], a_lo[:, k], b_hi[k], b_lo[k])
-    return acc[:, :cout]
+    span = scc.PAIR_SPAN
+    assert starts.shape == (-(-v // span) + 1, 27)
+    r_hi, r_lo = _split(rows)
+    out = torch.zeros((v, width), dtype=torch.float32)
+    for k in range(27):
+        b_hi, b_lo = pack[k, 0, :width, :cin].T, pack[k, 1, :width, :cin].T
+        idx = []
+        for s in range(len(starts) - 1):
+            a, e = int(starts[s, k]), int(starts[s + 1, k])
+            vox = pairs[k, a:e, 0].long()
+            assert ((vox >= s * span) & (vox < (s + 1) * span)).all()
+            idx.append(torch.arange(a, e))
+        pr = pairs[k, torch.cat(idx)].long()
+        acc = torch.zeros((len(pr), width), dtype=torch.float32)
+        for k0 in range(0, cin, MMA_K):
+            kk = slice(k0, k0 + MMA_K)
+            _partial_3xtf32(acc, r_hi[pr[:, 1]][:, kk], r_lo[pr[:, 1]][:, kk],
+                            b_hi[kk], b_lo[kk])
+        out[pr[:, 0]] += acc  # one pair a voxel in a list
+    return out
 
 
 def emulate_dw_3xtf32(g: torch.Tensor, feats: torch.Tensor,
@@ -148,14 +157,18 @@ def emulate_dw_3xtf32(g: torch.Tensor, feats: torch.Tensor,
 
 def twin_pair_lists(what, fn, device, *args) -> None:
     """The pair-list library call (``sparse_conv_cuda._call``) done by the
-    twin on the call's own arguments."""
-    assert fn == "mopa_subm_conv_dw_pairs"
-    ranks, sel, block_counts, pairs, counts, v = args
+    twins on the call's own arguments."""
+    assert fn == "mopa_subm_conv_pairs"
+    ranks, sel, block_counts, pairs, counts, starts, v, span = args
     assert block_counts.shape == (-(-v // scc.PAIR_VOXELS), 27)
     assert pairs.shape == (27, v, 2) and counts.shape == (27,)
-    want_pairs, want_counts = scc.dw_pair_lists(ranks, sel, v)
+    want_pairs, want_counts = scc.pair_lists(ranks, sel, v)
     pairs.copy_(want_pairs)
     counts.copy_(want_counts)
+    if span:
+        starts.copy_(scc.span_starts(want_pairs, want_counts, v, span))
+    else:
+        assert starts is None
 
 
 def _slot_rows_of(ranks, sel, v):
@@ -199,29 +212,35 @@ def test_tf32_round_is_round_to_nearest_away():
 @pytest.mark.parametrize("cin,cout", [(1, 16), (12, 20), (16, 16),
                                       (32, 16), (24, 40), (192, 96)])
 @pytest.mark.parametrize("mirror", [False, True], ids=["k1", "d_feats"])
-def test_pack_splits_the_weight_blocks(cin, cout, mirror):
-    """pack[c][0] + pack[c][1] = column c's B block transposed (the rows
-    the Pallas calls' ``w2d`` / ``wt2d`` hold) within one float32 unit of
-    each value, both parts TF32, zero past 3*Cin rows and Cout columns."""
+def test_pair_pack_splits_the_window_rows(cin, cout, mirror):
+    """pack[k][0] + pack[k][1], k = 26 - (3c + t), is slot t's rows of
+    column c's window block (the rows the Pallas calls' ``w2d`` / ``wt2d``
+    hold) transposed, within one float32 unit of each value; both parts
+    TF32, the high part the rounded weight; zero past Cin rows (to a
+    multiple of the stage depth) and the width's columns (to NP)."""
     rng = np.random.default_rng(cin * 7 + cout)
     w = (rng.normal(size=(27, cin, cout)) * 0.2).astype(np.float32)
     k_in, n_out = (cout, cin) if mirror else (cin, cout)
-    kp, np_ = scc.conv_tile_shape(k_in, n_out)
-    assert kp % scc.K_STAGE == 0 and kp >= 3 * k_in and np_ >= n_out
-    pack = scc.pack_weight_3xtf32(torch.from_numpy(w), mirror, kp, np_)
-    assert pack.shape == (9, 2, np_, kp) and pack.dtype == torch.float32
-    bits = pack.numpy().view(np.int32)
-    assert not (bits & 0x1FFF).any()
+    np_ = scc.conv_tile_shape(k_in, n_out)[1]
+    assert np_ >= n_out and np_ // 16 in scc.NT_CHOICES
+    pack = scc.pair_pack_3xtf32(torch.from_numpy(w), mirror, np_)
+    kpc = -(-k_in // scc.K_STAGE) * scc.K_STAGE
+    assert pack.shape == (27, 2, np_, kpc) and pack.dtype == torch.float32
+    assert not (pack.numpy().view(np.int32) & 0x1FFF).any()
     whole = pack[:, 0].double() + pack[:, 1].double()
     for c in range(9):
-        b = _weight_block(w, c, mirror)[:3 * k_in, :n_out].T
-        unit = np.exp2(np.floor(np.log2(np.maximum(np.abs(b), 1e-30))) - 23)
-        assert (np.abs(whole[c, :n_out, :3 * k_in].numpy() - b)
-                <= unit).all()
-        assert np.array_equal(pack[c, 0, :n_out, :3 * k_in].numpy(),
-                              scc.tf32_round(torch.from_numpy(
-                                  b.astype(np.float32))).numpy())
-    assert not pack[:, :, n_out:].any() and not pack[:, :, :, 3 * k_in:].any()
+        win = _weight_block(w, c, mirror)
+        for t in range(3):
+            k = 26 - (3 * c + t)
+            b = win[t * k_in:(t + 1) * k_in, :n_out].T
+            unit = np.exp2(np.floor(np.log2(np.maximum(np.abs(b), 1e-30)))
+                           - 23)
+            assert (np.abs(whole[k, :n_out, :k_in].numpy() - b)
+                    <= unit).all()
+            assert np.array_equal(pack[k, 0, :n_out, :k_in].numpy(),
+                                  scc.tf32_round(torch.from_numpy(
+                                      b.astype(np.float32))).numpy())
+    assert not pack[:, :, n_out:].any() and not pack[:, :, :, k_in:].any()
 
 
 def _close(got, want, rel=1e-4):
@@ -240,8 +259,9 @@ def _jax_conv_and_vjp(lv, feats, w, g):
 
 @pytest.mark.parametrize("cin,cout", scn_conv_shapes())
 def test_emulated_3xtf32_matches_jax_vjp(level, cin, cout):
-    """The emulated kernels on the wrapper's packs: K1, ``d_feats`` and
-    ``d_w`` within 1e-4 of max|ref| of JAX's conv and its VJP."""
+    """The emulated kernels over the twin's lists and span table: K1,
+    ``d_feats`` and ``d_w`` within 1e-4 of max|ref| of JAX's conv and its
+    VJP."""
     lv, _ = level
     v = lv.valid.shape[0]
     rng = np.random.default_rng(cin * 1000 + cout)
@@ -251,15 +271,17 @@ def test_emulated_3xtf32_matches_jax_vjp(level, cin, cout):
     g = rng.normal(size=(v, cout)).astype(np.float32)
     want, want_df, want_dw = _jax_conv_and_vjp(lv, feats, w, g)
     ft, wt, gt = (torch.from_numpy(a) for a in (feats, w, g))
-    kp, np_ = scc.conv_tile_shape(cin, cout)
-    out = emulate_conv_3xtf32(ft, lv.ranks, lv.sel,
-                              scc.pack_weight_3xtf32(wt, False, kp, np_),
-                              cout)
-    kp, np_ = scc.conv_tile_shape(cout, cin)
-    d_feats = emulate_conv_3xtf32(gt, lv.ranks, lv.sel,
-                                  scc.pack_weight_3xtf32(wt, True, kp, np_),
-                                  cin)
-    d_w = emulate_dw_3xtf32(gt, ft, *scc.dw_pair_lists(lv.ranks, lv.sel, v))
+    pairs, counts = scc.pair_lists(lv.ranks, lv.sel, v)
+    starts = scc.span_starts(pairs, counts, v)
+    out = emulate_conv_3xtf32(
+        ft, pairs, starts,
+        scc.pair_pack_3xtf32(wt, False, scc.conv_tile_shape(cin, cout)[1]),
+        cout)
+    d_feats = emulate_conv_3xtf32(
+        gt, pairs, starts,
+        scc.pair_pack_3xtf32(wt, True, scc.conv_tile_shape(cout, cin)[1]),
+        cin)
+    d_w = emulate_dw_3xtf32(gt, ft, pairs, counts)
     _close(out, want)
     _close(d_feats, want_df)
     _close(d_w, want_dw)
@@ -285,12 +307,13 @@ def emulated_launches(monkeypatch):
             assert pairs.shape == (27, v, 2) and counts.shape == (27,)
             out.copy_(emulate_dw_3xtf32(g, feats, pairs, counts))
             return
-        rows, ranks, sel, weight, pack, out, v, cin, width, mirror, kp, \
-            np_ = args
-        assert (kp, np_) == scc.conv_tile_shape(cin, width)
-        assert pack.shape == (9, 2, np_, kp) and weight.is_contiguous()
-        pack.copy_(scc.pack_weight_3xtf32(weight, bool(mirror), kp, np_))
-        out.copy_(emulate_conv_3xtf32(rows, ranks, sel, pack, width))
+        rows, pairs, starts, weight, pack, out, v, cin, width, mirror, \
+            np_, span = args
+        assert np_ == scc.conv_tile_shape(cin, width)[1]
+        assert span == scc.PAIR_SPAN and weight.is_contiguous()
+        assert pairs.shape == (27, v, 2)
+        pack.copy_(scc.pair_pack_3xtf32(weight, bool(mirror), np_))
+        out.copy_(emulate_conv_3xtf32(rows, pairs, starts, pack, width))
 
     monkeypatch.setattr(scc, "_require_cuda", lambda x, what: None)
     lib = type("Lib", (), {"__getattr__": lambda self, name: name})()
@@ -306,8 +329,9 @@ def emulated_launches(monkeypatch):
 
 def test_spvcnn_wide_shape_through_the_wrappers(level, emulated_launches):
     """SPVCNN's 384 -> 256: the wrappers' column blocks (K1 and ``d_w`` 2 x
-    128 output columns, ``d_feats`` 2 x 192), each block packed and
-    emulated, within 1e-4 of max|ref| of JAX."""
+    128 output columns, ``d_feats`` 2 x 192), each block emulated, within
+    1e-4 of max|ref| of JAX; one set of pair lists for K1's blocks and one
+    for the backward's ``d_feats`` and ``d_w`` together."""
     lv, _ = level
     v = lv.valid.shape[0]
     cin, cout = 384, 256
@@ -318,13 +342,11 @@ def test_spvcnn_wide_shape_through_the_wrappers(level, emulated_launches):
     g = rng.normal(size=(v, cout)).astype(np.float32)
     ft, wt, gt = (torch.from_numpy(a) for a in (feats, w, g))
     out = scc.submanifold_conv_wide_cuda(ft, lv.ranks, lv.sel, wt)
-    d_feats = scc.submanifold_conv_wide_bwd_dfeats_cuda(gt, lv.ranks,
-                                                        lv.sel, wt)
-    d_w = scc.submanifold_conv_wide_bwd_dw_cuda(gt, ft, lv.ranks, lv.sel)
+    d_feats, d_w = scc.submanifold_conv_wide_bwd_cuda(gt, ft, lv.ranks,
+                                                      lv.sel, wt)
     assert scc.launches[scc.K1] == scc.routes[scc.K1][scc.TF32X3] == 2
     assert scc.launches[scc.K2_DFEATS] == 2 and scc.launches[scc.K2_DW] == 2
-    # one list for both column blocks of d_w
-    assert scc.dw_pair_route == {"lists": 1, "launches": 2}
+    assert scc.pair_route == {"lists": 2, "k1": 2, "dfeats": 2, "dw": 2}
     want, want_df, want_dw = _jax_conv_and_vjp(lv, feats, w, g)
     _close(out, want)
     _close(d_feats, want_df)
@@ -345,7 +367,7 @@ def _offset_rows(lv) -> np.ndarray:
 
 def _check_lists(lv) -> tuple:
     v = lv.valid.shape[0]
-    pairs, counts = scc.dw_pair_lists(lv.ranks, lv.sel, v)
+    pairs, counts = scc.pair_lists(lv.ranks, lv.sel, v)
     assert pairs.shape == (27, v, 2) and pairs.dtype == torch.int32
     assert counts.shape == (27,) and counts.dtype == torch.int32
     want = _offset_rows(lv)
@@ -420,3 +442,47 @@ def test_pair_lists_skip_padding_tiles():
         listed = pairs[k, :int(counts[k])].long()
         assert not in_tile[listed[:, 0]].any()
         assert not in_tile[listed[:, 1]].any()
+
+
+def _span_table_loop(pairs, counts, v, span):
+    """The span table by a loop over the lists' entries."""
+    n = -(-v // span)
+    want = np.zeros((n + 1, 27), np.int64)
+    for k in range(27):
+        for s in range(n + 1):
+            want[s, k] = sum(1 for p in range(int(counts[k]))
+                             if int(pairs[k, p, 0]) < s * span)
+    return want
+
+
+@pytest.mark.parametrize("plan", ["padding_tiles", "flat_in_z"])
+def test_span_table_matches_a_loop_over_the_lists(plan):
+    """The span table equals a loop over the lists, on a plan whose second
+    scan is mostly padding (whole spans without a pair: their rows equal)
+    and on one flat in z (the 18 dz != 0 offsets' columns all zero); span
+    s's entries of list k are its pairs, the last row the counts."""
+    rng = np.random.default_rng(5)
+    coords = rng.integers(0, 12, size=(3, 300, 3)).astype(np.int32)
+    valid = np.ones((3, 300), bool)
+    if plan == "padding_tiles":
+        valid[1, 30:] = False
+    else:
+        coords[..., 2] = 5
+    lv = _plan_level(coords, valid)
+    v = lv.valid.shape[0]
+    pairs, counts = scc.pair_lists(lv.ranks, lv.sel, v)
+    for span in (scc.PAIR_SPAN, 32):
+        starts = scc.span_starts(pairs, counts, v, span)
+        assert starts.shape == (-(-v // span) + 1, 27)
+        assert starts.dtype == torch.int32
+        np.testing.assert_array_equal(starts.numpy(),
+                                      _span_table_loop(pairs, counts, v,
+                                                       span))
+        np.testing.assert_array_equal(starts[-1].numpy(), counts.numpy())
+    starts = scc.span_starts(pairs, counts, v).numpy()
+    empty = (starts[1:] == starts[:-1]).all(axis=1)
+    if plan == "padding_tiles":
+        assert empty.any()
+    else:
+        dz = [k for k in range(27) if k % 3 != 1]
+        assert not starts[:, dz].any() and starts[-1, 13] > 0

@@ -14,8 +14,7 @@ they rely on is held here, on the CPU, at small widths:
 * the ``d_w`` kernel's per-(range, column) partial blocks (Cin, 3*Cout) and
   their scatter-back to (27, Cin, Cout), against the plain twin and
   ``jax.vjp``; the voxel ranges and the CTA tiling it is given;
-* the wrappers' route choice by dtype, with the library calls stubbed;
-* the per-tile column mask, against a loop over the plan.
+* the wrappers' route choice by dtype, with the library calls stubbed.
 
 The numpy emulations follow the index formulas written in the kernels'
 sources. float64 emulation, float32 inputs: to 1e-5 of the largest |value|.
@@ -252,29 +251,6 @@ def test_dw_tiling_covers_the_block(cin, cout):
     assert 16 * wm <= max(16, cin) * 2  # no CTA row block past 2*Cin
 
 
-def test_tile_columns_match_a_loop_over_the_plan():
-    """On a plan whose second scan is mostly padding: the mask equals a loop
-    over the voxels, and whole padding tiles stage no column."""
-    rng = np.random.default_rng(1)
-    coords = rng.integers(0, 12, size=(S, P, 3)).astype(np.int32)
-    valid = np.ones((S, P), bool)
-    valid[1, 30:] = False
-    lv = port_unet.build_unet_plan_batched(
-        torch.from_numpy(coords), torch.from_numpy(valid), 1,
-        capacities=jax_unet.capacity_schedule(P, 1)).levels[0]
-    v = lv.valid.shape[0]
-    got = scc.tile_columns(lv.ranks, lv.sel, v).numpy()
-    src = _slot_rows(lv)
-    want = np.zeros((-(-v // scc.TILE_M), 9), bool)
-    for vox in range(v):
-        for c in range(9):
-            if (src[3 * c:3 * c + 3, vox] >= 0).any():
-                want[vox // scc.TILE_M, c] = True
-    np.testing.assert_array_equal(got, want)
-    assert not want.all(axis=1).all() and want.any(axis=1).sum() >= 2
-    assert (~want.any(axis=1)).any()
-
-
 class _FakeLib:
     """Library functions that record their arguments and succeed."""
 
@@ -293,10 +269,12 @@ class _FakeLib:
 def test_wrappers_choose_the_route_by_dtype(level, monkeypatch, dtype,
                                             route):
     """bfloat16 calls the tensor-core entry points, float32 the 3xTF32 ones
-    (with a (9, 2, NP, KP) scratch for the weight's split pack, and d_w's
-    pair lists built first), both with the tile shape, the mirror flag and
-    the d_w tiling; each launch counts once under its kernel and route, the
-    pair lists not as a launch."""
+    (K1 over pair lists and a span table built first, with a (27, 2, NP,
+    KPC) scratch for the weight's split pack; the backward's ``d_feats``
+    and ``d_w`` over one set built for both), with the tile
+    shape, the mirror flag and the d_w tiling; each launch counts once
+    under its kernel and route, and on the float32 route in ``pair_route``
+    by kernel, the pair lists not as a launch."""
     lv, _ = level
     v = lv.valid.shape[0]
     cin, cout = 24, 40
@@ -311,9 +289,8 @@ def test_wrappers_choose_the_route_by_dtype(level, monkeypatch, dtype,
     w = torch.zeros(27, cin, cout, dtype=dtype)
     scc.reset_launch_counts()
     out = scc.submanifold_conv_wide_cuda(feats, lv.ranks, lv.sel, w)
-    d_feats = scc.submanifold_conv_wide_bwd_dfeats_cuda(g, lv.ranks, lv.sel,
-                                                        w)
-    d_w = scc.submanifold_conv_wide_bwd_dw_cuda(g, feats, lv.ranks, lv.sel)
+    d_feats, d_w = scc.submanifold_conv_wide_bwd_cuda(g, feats, lv.ranks,
+                                                      lv.sel, w)
     assert out.shape == (v, cout) and out.dtype == dtype
     assert d_feats.shape == (v, cin) and d_feats.dtype == dtype
     assert d_w.shape == (27, cin, cout) and d_w.dtype == torch.float32
@@ -326,22 +303,35 @@ def test_wrappers_choose_the_route_by_dtype(level, monkeypatch, dtype,
         assert dw[2:4] == (lv.ranks.data_ptr(), lv.sel.data_ptr())
         assert dw[6:] == (v, cin, cout, ranges, rows,
                           *scc.dw_tiling(cin, cout), 0)
+        for call in (fwd, bwd):
+            assert call[1:3] == (lv.ranks.data_ptr(), lv.sel.data_ptr())
+        assert fwd[5:] == (v, cin, cout, 0, *scc.conv_tile_shape(cin, cout),
+                           0)
+        assert bwd[5:] == (v, cout, cin, 1, *scc.conv_tile_shape(cout, cin),
+                           0)
     else:
-        (list_name, lists), (dw_name, dw) = libs["dw"].calls
-        assert (fwd_name, bwd_name, list_name, dw_name) == (
+        (fl_name, f_lists), (bl_name, b_lists), (dw_name, dw) = \
+            libs["dw"].calls
+        assert (fwd_name, bwd_name, fl_name, bl_name, dw_name) == (
             "mopa_subm_conv_f32", "mopa_subm_conv_f32",
-            "mopa_subm_conv_dw_pairs", "mopa_subm_conv_dw_f32")
-        # the pack's scratch between the weight and the output
+            "mopa_subm_conv_pairs", "mopa_subm_conv_pairs",
+            "mopa_subm_conv_dw_f32")
+        # the plan in; (block counts, pairs, counts, span starts) out
+        for lists in (f_lists, b_lists):
+            assert lists[:2] == (lv.ranks.data_ptr(), lv.sel.data_ptr())
+            assert lists[6:] == (v, scc.PAIR_SPAN, 0)
+        # K1 on the forward's pairs and starts, d_feats and d_w on the
+        # backward's; the pack's scratch between the weight and the output
         fwd, bwd = fwd[:4] + fwd[5:], bwd[:4] + bwd[5:]
-        # the plan in, (block counts, pairs, counts) out; the GEMM reads
-        # the pairs and counts
-        assert lists[:2] == (lv.ranks.data_ptr(), lv.sel.data_ptr())
-        assert lists[5:] == (v, 0)
-        assert dw[2:4] == lists[3:5]
+        assert fwd[1:3] == (f_lists[3], f_lists[5])
+        assert bwd[1:3] == (b_lists[3], b_lists[5])
+        assert dw[2:4] == b_lists[3:5]
+        assert fwd[5:] == (v, cin, cout, 0, scc.conv_tile_shape(cin, cout)[1],
+                           scc.PAIR_SPAN, 0)
+        assert bwd[5:] == (v, cout, cin, 1, scc.conv_tile_shape(cout, cin)[1],
+                           scc.PAIR_SPAN, 0)
         assert dw[6:] == (v, cin, cout, ranges, rows,
                           *scc.dw_pair_tiling(cin, cout), 0)
-    assert fwd[5:] == (v, cin, cout, 0, *scc.conv_tile_shape(cin, cout), 0)
-    assert bwd[5:] == (v, cout, cin, 1, *scc.conv_tile_shape(cout, cin), 0)
     # the forward weight is passed in place in both modes
     assert fwd[3] == bwd[3] == w.data_ptr()
     other = scc.TF32X3 if route == scc.TENSOR_CORE else scc.TENSOR_CORE
@@ -349,8 +339,8 @@ def test_wrappers_choose_the_route_by_dtype(level, monkeypatch, dtype,
         assert scc.launches[name] == 1
         assert scc.routes[name] == {route: 1, other: 0}
     n = int(route == scc.TF32X3)
-    assert scc.dw_pair_route == {"lists": n, "launches": n}
+    assert scc.pair_route == {"lists": 2 * n, "k1": n, "dfeats": n, "dw": n}
     scc.reset_launch_counts()
     assert not any(scc.launches.values())
     assert not any(n for r in scc.routes.values() for n in r.values())
-    assert not any(scc.dw_pair_route.values())
+    assert not any(scc.pair_route.values())

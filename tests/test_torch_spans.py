@@ -175,7 +175,7 @@ def test_cpu_step_under_profiler(clean, one_thread):
     assert [s.step for s in steps] == [first, first + 1]
     assert [s.step for s in rec.steps] == [first, first + 1]
     assert all(s.before.keys() == s.after.keys()
-               == {"launches", "dw_pair_route", "ptv3.attn"}
+               == {"launches", "pair_route", "ptv3.attn"}
                for s in rec.steps)
     want = ["train/decode", "train/plan", "train/net2d", "train/net3d",
             "train/losses", "train/backward", "train/optim", "train/ema"]

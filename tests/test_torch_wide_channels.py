@@ -6,9 +6,10 @@ The kernels hold at most ``COUT_MAX`` (192) output columns per launch
 blocks, one launch each, on a packed slice of the weight (``d_w``: of the
 cotangent), stitched by ``torch.cat``. Here the library launch is stubbed
 by the plain twin applied to exactly the arguments a launch receives (a
-float32 launch: by the emulation of its 3xTF32 sums,
-``test_torch_conv_f32_tc``, its conv on the pack it writes into its
-scratch), so the slicing, the packing and the stitching are held:
+float32 launch: by the emulation of its 3xTF32 sums over the pair lists
+and span table it is given and the weight pack it writes into its
+scratch, ``test_torch_conv_f32_tc``), so the slicing, the packing and the
+stitching are held:
 
 * at SPVCNN's shapes (Cin 384 -> Cout 256, and 128 -> 256): K1,
   ``d_feats`` and ``d_w`` equal the unblocked twin (float32 to 1e-5 of the
@@ -49,13 +50,13 @@ def _close(got, want, rel=1e-5):
 def twin_launches(monkeypatch):
     """Route every library launch to the plain twin of its kernel, recording
     (kernel, route, the launch's tensor and integer arguments); the float32
-    ``d_w``'s pair lists are the twin's."""
+    route's pair lists and span table are the twins'."""
     calls = []
 
     def launch(kernel, route, fn, device, *args):
         if route == scc.TF32X3 and kernel != scc.K2_DW:
-            # the scratch the launch packs its weight block into, then sums
-            # in 3xTF32 from; recorded without it
+            # the scratch the launch packs its weight into, then sums in
+            # 3xTF32 from; recorded without it
             pack = args[4]
             args = args[:4] + args[5:]
         calls.append((kernel, route, args))
@@ -75,16 +76,19 @@ def twin_launches(monkeypatch):
                 out.copy_(psc.submanifold_conv_wide_dw_ref(g, feats, plan_a,
                                                            plan_b))
             return
-        rows, ranks, sel, weight, out, v, cin, width, mirror = args[:9]
+        # the plan (bfloat16) or the pair lists and span table (float32)
+        rows, plan_a, plan_b, weight, out, v, cin, width, mirror = args[:9]
         assert out.shape == (v, width) and weight.is_contiguous()
-        assert args[9:] == scc.conv_tile_shape(cin, width)
         if route == scc.TF32X3:
-            pack.copy_(scc.pack_weight_3xtf32(weight, mirror, *args[9:]))
-            out.copy_(emulate_conv_3xtf32(rows, ranks, sel, pack, width))
+            assert args[9:] == (scc.conv_tile_shape(cin, width)[1],
+                                scc.PAIR_SPAN)
+            pack.copy_(scc.pair_pack_3xtf32(weight, mirror, args[9]))
+            out.copy_(emulate_conv_3xtf32(rows, plan_a, plan_b, pack, width))
             return
+        assert args[9:] == scc.conv_tile_shape(cin, width)
         ref = (psc.submanifold_conv_wide_dfeats_ref if mirror
                else psc.submanifold_conv_wide_ref)
-        out.copy_(ref(rows, ranks, sel, weight).to(out.dtype))
+        out.copy_(ref(rows, plan_a, plan_b, weight).to(out.dtype))
 
     monkeypatch.setattr(scc, "_require_cuda", lambda x, what: None)
     lib = type("Lib", (), {"__getattr__": lambda self, name: name})()
